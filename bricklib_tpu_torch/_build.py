@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by hand with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The
+The sources are compiled by hand with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, then linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/torch_kernels/<sha256 of the sources>/`` at the
 root of the checkout on first use, so a changed source builds anew and an
 unchanged one is built once.  Nothing is compiled at import time: the CPU
@@ -20,13 +21,14 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 LIB_NAME = "libbricklib_torch.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -34,9 +36,12 @@ _I64 = ctypes.c_longlong
 
 # argtypes of every C entry point: pointers and the stream as c_void_p
 SIGNATURES = {
-    "bt_pencil_sweep": [_VOID, _VOID, _VOID] + [_INT] * 18
+    "bt_pencil_sweep": [_VOID, _VOID, _VOID] + [_INT] * 20
                        + [_VOID, _VOID, _INT, _INT, _VOID],
+    "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 25
+                          + [_VOID, _VOID, _INT, _INT, _VOID],
     "bt_copy_intervals": [_VOID, _VOID, _INT, _I64, _VOID],
+    "bt_copy_stage": [_VOID, _VOID, _VOID, _INT, _I64, _VOID],
     "bt_copy_storage": [_VOID, _VOID, _I64, _VOID],
 }
 
@@ -70,24 +75,36 @@ def nvcc_path() -> str:
     return found
 
 
+def _run(cmd: list[str]) -> str:
+    """Run one nvcc command; its output, or raise with its stderr."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build(force: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into the library; returns its path.  The
-    compiler's ``-Xptxas -v`` report is kept beside it as ``nvcc.log``."""
+    """Compile ``csrc/*.cu`` into the library, one nvcc per source in
+    parallel, then link; returns its path.  The compiler's ``-Xptxas -v``
+    report is kept beside it as ``nvcc.log``."""
     out_dir = BUILD_ROOT / source_digest()
     lib = out_dir / LIB_NAME
     if lib.exists() and not force:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in sources()]
+        with ThreadPoolExecutor(len(objs)) as pool:
+            logs = list(pool.map(_run, [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                for p, o in zip(sources(), objs)]))
+        so = os.path.join(tmp, LIB_NAME)
+        _run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+              "-o", so, *objs])
+        (out_dir / "nvcc.log").write_text("".join(logs))
+        os.replace(so, lib)
     return lib
 
 

@@ -19,6 +19,10 @@ and kernel K1 (``csrc/pencil_sweep.cu``) reproduces:
 - level F is written to the bricks ``T[K0:K1, J0:J1]``.  Every other
   brick of the output (ghost ring, brick 0) is undefined, as on the TPU.
 
+``batch`` = B > 1 sweeps B subdomains stacked along the brick axis (the
+strong-scaling layout): subdomain ``s`` reads and writes through the same
+table with ``s * batch_stride`` added to every brick id.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches K1
 or raises.  The TPU scheduling arguments (``tile_j``, ``lookahead``,
 ``wait_late``, ``j_shift``, ``vmem_limit_bytes``, ``interpret``) are
@@ -50,25 +54,33 @@ MAX_TILE_I = 128
 
 @dataclass(frozen=True)
 class SweepPlan:
-    """Everything static about one sweep: brick shape, table, ranges,
-    fused levels, radius per side ``(k, j, i)``, and either the linear tap
-    table (``taps``) or, for a nonlinear stencil, its IR and resolver."""
+    """Everything static about one sweep: brick shape ``bdims`` (outer
+    axes, then i), table (one brick id per outer cell), the half-open
+    output ``ranges`` per outer axis, fused levels, radius per side (numpy
+    axis order), either the linear tap table (``taps``) or, for a
+    nonlinear stencil, its IR and resolver, and the batch: ``batch``
+    subdomains share the table, subdomain ``s`` adding ``s *
+    batch_stride`` to every brick id.  The 3-D sweep has outer axes
+    (k, j), the 4-D sweep (w, k, j)."""
 
     bdims: tuple
     table: np.ndarray
-    k_range: tuple
-    j_range: tuple
+    ranges: tuple
     fuse: int
     lo: tuple
     hi: tuple
     taps: TapTable | None
     ir: StencilIR
     params: dict
+    batch: int = 1
+    batch_stride: int = 0
 
     def written_bricks(self) -> np.ndarray:
         """Storage ids this sweep writes (sorted, unique)."""
-        (K0, K1), (J0, J1) = self.k_range, self.j_range
-        return np.unique(self.table[K0:K1, J0:J1])
+        ids = self.table[tuple(slice(a, b) for a, b in self.ranges)]
+        return np.unique(np.concatenate(
+            [ids.ravel() + s * self.batch_stride
+             for s in range(self.batch)]))
 
     def tile(self) -> tuple[int, int]:
         """(i lanes per block, shared-memory bytes) for kernel K1: the
@@ -134,59 +146,82 @@ class _TorchNS:
 
 
 def _apply_level(src: torch.Tensor, plan: SweepPlan) -> torch.Tensor:
-    """One stencil iteration on a dense ``[NK, NJ, BI]`` level; the result
-    is smaller by the radius on each side of k and j, periodic in i."""
-    (klo, jlo, _), (khi, jhi, _) = plan.lo, plan.hi
-    nk = src.shape[0] - klo - khi
-    nj = src.shape[1] - jlo - jhi
+    """One stencil iteration on a dense ``[batch, *outer, BI]`` level; the
+    result is smaller by the radius on each side of every outer axis,
+    periodic in i."""
+    lo, hi = plan.lo, plan.hi
+    no = len(plan.bdims) - 1
+    sizes = [src.shape[1 + a] - lo[a] - hi[a] for a in range(no)]
 
-    def shifted(dk, dj, di):
-        v = src[klo + dk:klo + dk + nk, jlo + dj:jlo + dj + nj]
-        return torch.roll(v, -di, dims=2) if di else v
+    def shifted(offs):
+        v = src[(slice(None),) + tuple(
+            slice(lo[a] + offs[a], lo[a] + offs[a] + sizes[a])
+            for a in range(no))]
+        return torch.roll(v, -offs[no], dims=no + 1) if offs[no] else v
 
     if plan.taps is None:
         def read_tap(_name, offs_edsl):
-            return shifted(*(int(offs_edsl[2 - a]) for a in range(3)))
+            return shifted([int(offs_edsl[no - a]) for a in range(no + 1)])
 
         out = evaluate(plan.ir.sdef.rhs, read_tap,
                        resolve_const_from_params(plan.params), _TorchNS)
         return out.to(src.dtype)
     acc = None
-    for (dk, dj, di), c in zip(plan.taps.offsets.tolist(),
-                               plan.taps.coeffs.tolist()):
-        t = c * shifted(dk, dj, di)
+    for offs, c in zip(plan.taps.offsets.tolist(),
+                       plan.taps.coeffs.tolist()):
+        t = c * shifted(offs)
         acc = t if acc is None else acc + t
     return acc
 
 
 def pencil_sweep_plain(x: torch.Tensor, table: torch.Tensor,
                        plan: SweepPlan) -> torch.Tensor:
-    """The plain PyTorch version of kernel K1, on any device: the levels
-    as dense tensors over the output range grown by the radius."""
-    BK, BJ, BI = plan.bdims
-    GK, GJ = plan.table.shape
-    (K0, K1), (J0, J1), F = plan.k_range, plan.j_range, plan.fuse
-    (klo, jlo, _), (khi, jhi, _) = plan.lo, plan.hi
+    """The plain PyTorch version of kernels K1 (3-D) and K4 (4-D), on any
+    device: the levels as dense ``[batch, *outer, BI]`` tensors over the
+    output ranges grown by the radius.  Level 0 clamps whole bricks at
+    the table edge in every outer axis; after each intermediate level the
+    k rows outside the table take the clamped row's values."""
+    bd = plan.bdims
+    no = len(bd) - 1
+    G = plan.table.shape
+    F = plan.fuse
     dev = x.device
-    kk = torch.arange(K0 * BK - F * klo, K1 * BK + F * khi, device=dev)
-    jj = torch.arange(J0 * BJ - F * jlo, J1 * BJ + F * jhi, device=dev)
-    kb = torch.div(kk, BK, rounding_mode="floor")
-    jb = torch.div(jj, BJ, rounding_mode="floor")
-    ids = table.long()[kb.clamp(0, GK - 1)[:, None],
-                       jb.clamp(0, GJ - 1)[None, :]]
-    level = x[ids, (kk - kb * BK)[:, None], (jj - jb * BJ)[None, :]]
+    ids = table.long()
+    offs = []
+    for a, (R0, R1) in enumerate(plan.ranges):
+        c = torch.arange(R0 * bd[a] - F * plan.lo[a],
+                         R1 * bd[a] + F * plan.hi[a], device=dev)
+        b = torch.div(c, bd[a], rounding_mode="floor")
+        shape = [1] * no
+        shape[a] = -1
+        ids = ids.index_select(a, b.clamp(0, G[a] - 1))
+        offs.append((c - b * bd[a]).reshape(shape))
+    strides = torch.arange(plan.batch, device=dev) * plan.batch_stride
+    ids = ids[None] + strides.reshape((-1,) + (1,) * no)
+    level = x[(ids,) + tuple(o[None] for o in offs)]
+    ka = no - 2                              # the k axis among the outer
+    BK, GK, K0 = bd[ka], G[ka], plan.ranges[ka][0]
     for f in range(1, F + 1):
         level = _apply_level(level, plan)
-        kbase = K0 * BK - (F - f) * klo
-        if f < F and (kbase < 0 or kbase + level.shape[0] > GK * BK):
-            rows = torch.arange(kbase, kbase + level.shape[0], device=dev)
+        kbase = K0 * BK - (F - f) * plan.lo[ka]
+        nk = level.shape[1 + ka]
+        if f < F and (kbase < 0 or kbase + nk > GK * BK):
+            rows = torch.arange(kbase, kbase + nk, device=dev)
             rb = torch.div(rows, BK, rounding_mode="floor")
-            level = level[rb.clamp(0, GK - 1) * BK + rows - rb * BK - kbase]
-    KC, JC = K1 - K0, J1 - J0
+            level = level.index_select(
+                1 + ka, rb.clamp(0, GK - 1) * BK + rows - rb * BK - kbase)
+    counts = [R1 - R0 for R0, R1 in plan.ranges]
+    split = [plan.batch]
+    for c, b in zip(counts, bd[:no]):
+        split += [c, b]
+    perm = ([0] + [1 + 2 * a for a in range(no)]
+            + [2 + 2 * a for a in range(no)] + [1 + 2 * no])
+    vals = level.reshape(split + [bd[no]]).permute(perm).reshape(
+        (-1,) + tuple(bd))
+    wids = table[tuple(slice(R0, R1) for R0, R1 in plan.ranges)].long()
+    wids = (wids[None] + strides.reshape((-1,) + (1,) * no)).reshape(-1)
     out = torch.empty_like(x)
-    out[table[K0:K1, J0:J1].reshape(-1).long()] = (
-        level.reshape(KC, BK, JC, BJ, BI).permute(0, 2, 1, 3, 4)
-        .reshape(KC * JC, BK, BJ, BI))
+    out[wids] = vals
     return out
 
 
@@ -213,7 +248,9 @@ def pencil_sweep_kernel(x: torch.Tensor, table: torch.Tensor,
     if len(plan.taps.coeffs) > 128:
         raise ValueError("kernel K1 takes at most 128 taps")
     ti, smem = plan.tile()
-    (K0, K1), (J0, J1) = plan.k_range, plan.j_range
+    (K0, K1), (J0, J1) = plan.ranges
+    if plan.batch * (K1 - K0) > 65535:
+        raise ValueError("kernel K1 takes at most 65535 batch x k rows")
     (klo, jlo, ilo), (khi, jhi, ihi) = plan.lo, plan.hi
     offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
     coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
@@ -221,9 +258,9 @@ def pencil_sweep_kernel(x: torch.Tensor, table: torch.Tensor,
     err = _build.library().bt_pencil_sweep(
         x.data_ptr(), out.data_ptr(), table.data_ptr(),
         GK, GJ, BK, BJ, BI, K0, K1, J0, J1, plan.fuse,
-        klo, khi, jlo, jhi, ilo, ihi, ti, len(coeffs),
-        offs.ctypes.data, coeffs.ctypes.data, smem, KERNEL_THREADS,
-        _build.stream_handle(x.device))
+        klo, khi, jlo, jhi, ilo, ihi, ti, plan.batch, plan.batch_stride,
+        len(coeffs), offs.ctypes.data, coeffs.ctypes.data, smem,
+        KERNEL_THREADS, _build.stream_handle(x.device))
     _build.check(err, "pencil_sweep")
     pencil_sweep_kernel.launches += 1
     return out
@@ -259,10 +296,11 @@ def pencil_sweep(stencil, grid: np.ndarray,
     BI]`` storage.  ``fuse`` = F applies F stencil iterations per pass.
 
     Arguments and errors follow ``pallas_pencil_sweep``
-    (``bricklib_tpu/codegen/pencil_kernel.py:296``).  i-bricked tables,
-    ``batch > 1``, ``inplace``, multi-input stencils and systems, and bf16
-    storage raise ``NotImplementedError``; a nonlinear stencil runs on
-    CPU tensors only."""
+    (``bricklib_tpu/codegen/pencil_kernel.py:296``); ``batch`` > 1 with
+    ``batch_stride`` bricks per subdomain sweeps every subdomain of the
+    stack in one launch.  i-bricked tables, ``inplace``, multi-input
+    stencils and systems, and bf16 storage raise ``NotImplementedError``;
+    a nonlinear stencil runs on CPU tensors only."""
     sdefs = stencil if isinstance(stencil, (list, tuple)) else [stencil]
     if len(sdefs) == 0:
         raise ValueError("empty stencil system")
@@ -303,11 +341,11 @@ def pencil_sweep(stencil, grid: np.ndarray,
     if not (0 <= K0 < K1 <= GK and 0 <= J0 < J1 <= GJ):
         raise ValueError(f"range k{k_range} j{j_range} outside grid "
                          f"({GK}, {GJ})")
-    if int(batch) > 1:
-        if batch_stride is None:
-            raise ValueError("batch > 1 needs batch_stride (bricks per "
-                             "subdomain)")
-        raise not_ported("batched sweeps (batch > 1)", FEATURES_ITEM)
+    batch = int(batch)
+    if batch > 1 and batch_stride is None:
+        raise ValueError("batch > 1 needs batch_stride (bricks per "
+                         "subdomain)")
+    stride = int(batch_stride) if batch > 1 else 0
     if lo[0] > BK or hi[0] > BK or lo[1] > BJ or hi[1] > BJ:
         raise ValueError("stencil radius exceeds brick dims")
     F = int(fuse)
@@ -337,23 +375,43 @@ def pencil_sweep(stencil, grid: np.ndarray,
 
     plan = SweepPlan(
         bdims=(BK, BJ, BI), table=np.ascontiguousarray(grid, np.int32),
-        k_range=(K0, K1), j_range=(J0, J1), fuse=F,
+        ranges=((K0, K1), (J0, J1)), fuse=F,
         lo=tuple(int(v) for v in lo), hi=tuple(int(v) for v in hi),
         taps=(params_from_reference(params, ir) if ir.linear is not None
               else None),
-        ir=ir, params=dict(params or {}))
+        ir=ir, params=dict(params or {}), batch=batch, batch_stride=stride)
+    return sweep_fn(plan, nbricks, pencil_sweep_kernel)
+
+
+def check_table(plan: SweepPlan, nbricks: int) -> None:
+    """Every brick id the sweep may read lies in ``[0, nbricks)``: the
+    kernels index storage through the table unchecked."""
+    t = plan.table
+    top = int(t.max()) + (plan.batch - 1) * plan.batch_stride
+    if t.size and (int(t.min()) < 0 or top >= int(nbricks)):
+        raise ValueError(f"table ids span [{int(t.min())}, {top}] with "
+                         f"batch {plan.batch}, outside {int(nbricks)} "
+                         "bricks")
+
+
+def sweep_fn(plan: SweepPlan, nbricks: int, kernel):
+    """``fn(dat_view) -> out_view`` for a plan: the plain version for a
+    CPU tensor, ``kernel`` for a CUDA one.  The device table is made once
+    per device."""
+    check_table(plan, nbricks)
+    shape = (int(nbricks),) + tuple(plan.bdims)
     tables: dict = {}
 
     def fn(dat_view: torch.Tensor) -> torch.Tensor:
-        if tuple(dat_view.shape) != (int(nbricks), BK, BJ, BI):
+        if tuple(dat_view.shape) != shape:
             raise ValueError(f"storage shape {tuple(dat_view.shape)} is not "
-                             f"({int(nbricks)}, {BK}, {BJ}, {BI})")
+                             f"{shape}")
         dev = dat_view.device
         if dev not in tables:
             tables[dev] = torch.from_numpy(plan.table).to(dev)
         if dev.type == "cpu":
             return pencil_sweep_plain(dat_view, tables[dev], plan)
-        return pencil_sweep_kernel(dat_view, tables[dev], plan)
+        return kernel(dat_view, tables[dev], plan)
 
     fn.plan = plan
     return fn

@@ -36,16 +36,17 @@ def _merge_intervals(pairs):
     return out
 
 
-def _check_stage(ivs) -> None:
-    """Within one stage no destination may overlap another destination or
-    any source: the TPU issued a stage's copies concurrently, and so do
-    the blocks of one K2 launch."""
-    dst = sorted((d0, d1) for d0, d1, _s0, _s1 in ivs)
+def check_stage(dsts, srcs) -> None:
+    """Within one stage no destination row range may overlap another
+    destination or any source range in the same storage: the TPU issued a
+    stage's copies concurrently, and so do the blocks of one K2 or K5
+    launch."""
+    dst = sorted(dsts)
     for (_a0, a1), (b0, _b1) in zip(dst, dst[1:]):
         if b0 < a1:
-            raise ValueError(f"stage destinations overlap: {ivs}")
-    for d0, d1, _s0, _s1 in ivs:
-        for _e0, _e1, s0, s1 in ivs:
+            raise ValueError(f"stage destinations overlap: {dst}")
+    for d0, d1 in dst:
+        for s0, s1 in srcs:
             if d0 < s1 and s0 < d1:
                 raise ValueError(f"stage destination [{d0}, {d1}) overlaps "
                                  f"source [{s0}, {s1})")
@@ -79,7 +80,8 @@ def shift_stages(decomp: BrickDecomp, mesh_shape, table_axes=(),
             if pairs:
                 ivs.extend(_merge_intervals(pairs))
         if ivs:
-            _check_stage(ivs)
+            check_stage([(d0, d1) for d0, d1, _, _ in ivs],
+                        [(s0, s1) for _, _, s0, s1 in ivs])
             out.append(ivs)
     return out
 

@@ -12,6 +12,9 @@
 // outside [0, GK*BK) are replaced by the clamped row of the same level at
 // the same in-brick offset.  Level F is written to the bricks
 // T[K0:K1, J0:J1] only; every other brick of `out` is left untouched.
+// With a batch of B subdomains (the strong-scaling stack), subdomain s
+// reads and writes through the same table with s * stride added to every
+// brick id: one more grid dimension, folded into blockIdx.z.
 //
 // What bounds it on the card.  Device-memory bytes, in the end: an f32
 // 7-point sweep does 14 flops per 8 bytes moved, far below the ~20
@@ -54,6 +57,8 @@ struct SweepGeom {
     int GK, GJ;                         // table shape
     int BK, BJ, BI;                     // brick shape
     int K0, J0;                         // first output brick row / pencil
+    int KC;                             // output brick rows per subdomain
+    long long stride;                   // bricks per subdomain
     int F;                              // fused levels
     int klo, khi, jlo, jhi, ilo, ihi;   // stencil radius per side
     int TI;                             // i lanes per block
@@ -83,7 +88,9 @@ __global__ void pencil_sweep_kernel(const float* __restrict__ x,
                                     SweepGeom g, SweepTaps taps) {
     extern __shared__ float smem[];
     const int F = g.F;
-    const int kout = g.K0 + blockIdx.z;
+    const int sub = blockIdx.z / g.KC;
+    const int kout = g.K0 + (blockIdx.z - sub * g.KC);
+    const long long bofs = sub * g.stride;
     const int jout = g.J0 + blockIdx.y;
     const int i0 = blockIdx.x * g.TI;
     const int rk = g.klo + g.khi, rj = g.jlo + g.jhi, ri = g.ilo + g.ihi;
@@ -106,8 +113,8 @@ __global__ void pencil_sweep_kernel(const float* __restrict__ x,
     for (int r = tid; r < nk * nj; r += nthr) {
         const int kk = kbase0 + r / nj, jj = jbase0 + r % nj;
         const int kb = floor_div(kk, g.BK), jb = floor_div(jj, g.BJ);
-        const long long b = table[clamp_int(kb, 0, g.GK - 1) * g.GJ
-                                  + clamp_int(jb, 0, g.GJ - 1)];
+        const long long b = bofs + table[clamp_int(kb, 0, g.GK - 1) * g.GJ
+                                         + clamp_int(jb, 0, g.GJ - 1)];
         rowoff[r] = b * brick
                     + ((long long)(kk - kb * g.BK) * g.BJ + (jj - jb * g.BJ))
                       * g.BI;
@@ -150,7 +157,7 @@ __global__ void pencil_sweep_kernel(const float* __restrict__ x,
         const int mi = g.TI + (F - f) * ri;
         const int n = mk * mj * mi;
         const float inv_i = 1.0f / mi, inv_j = 1.0f / mj;
-        const long long ob = f == F ? table[kout * g.GJ + jout] : 0;
+        const long long ob = f == F ? bofs + table[kout * g.GJ + jout] : 0;
         // tap offsets into the level below, in bytes, once per level
         int boff[NT > 0 ? NT : 1];
 #pragma unroll
@@ -232,13 +239,15 @@ extern "C" int bt_pencil_sweep(const void* x, void* out, const void* table,
                                int K0, int K1, int J0, int J1, int F,
                                int klo, int khi, int jlo, int jhi,
                                int ilo, int ihi, int TI,
-                               int ntaps, const int* tap_offsets,
+                               int batch, int stride, int ntaps,
+                               const int* tap_offsets,
                                const float* tap_coeffs, int smem_bytes,
                                int threads, void* stream) {
-    if (ntaps < 1 || ntaps > BT_MAX_TAPS || F < 1 || TI < 1 || BI % TI)
+    if (ntaps < 1 || ntaps > BT_MAX_TAPS || F < 1 || TI < 1 || BI % TI
+        || batch < 1 || batch * (K1 - K0) > 65535)
         return (int)cudaErrorInvalidValue;
-    SweepGeom g = {GK, GJ, BK, BJ, BI, K0, J0, F,
-                   klo, khi, jlo, jhi, ilo, ihi, TI};
+    SweepGeom g = {GK, GJ, BK, BJ, BI, K0, J0, K1 - K0, (long long)stride,
+                   F, klo, khi, jlo, jhi, ilo, ihi, TI};
     SweepTaps taps;
     taps.n = ntaps;
     for (int t = 0; t < ntaps; ++t) {
@@ -247,7 +256,7 @@ extern "C" int bt_pencil_sweep(const void* x, void* out, const void* table,
         taps.di[t] = tap_offsets[3 * t + 2];
         taps.c[t] = tap_coeffs[t];
     }
-    dim3 grid(BI / TI, J1 - J0, K1 - K0);
+    dim3 grid(BI / TI, J1 - J0, batch * (K1 - K0));
     cudaStream_t st = (cudaStream_t)stream;
     const float* xf = (const float*)x;
     const int* tb = (const int*)table;

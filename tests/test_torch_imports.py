@@ -24,17 +24,28 @@ PKG = REPO / "bricklib_tpu_torch"
 DRIVE = """
 import sys
 import bricklib_tpu_torch
-from bricklib_tpu_torch.drivers import weak
+from bricklib_tpu_torch.drivers import strong, weak
 from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
+from bricklib_tpu_torch.codegen.pencil_kernel_4d import pencil_sweep_4d_kernel
 from bricklib_tpu_torch.comm.exchange import copy_intervals
+from bricklib_tpu_torch.comm.strong import stage_copy
 from bricklib_tpu_torch.bench.roofline import copy_storage
 
 res = weak.run(dims=(32, 32, 32), bdim=(8, 8, 32), stencil="s7pt",
                st_iter=8, fuse=4, table_periodic=False, backend="pencil",
                validate=True, iters=1, device="cpu")
 assert res["calls"]["step"] > 0
-assert (pencil_sweep_kernel.launches, copy_intervals.launches,
-        copy_storage.launches) == (0, 0, 0)
+res = weak.run(dims=(8, 8, 8, 16), bdim=(4, 4, 4, 16), stencil="mpi9pt",
+               st_iter=4, fuse=2, table_periodic=False, backend="pencil",
+               validate=True, iters=1, device="cpu")
+assert res["calls"]["step"] > 0
+res = strong.run(dom=(32, 32, 32), sdom=(16, 16, 32), bdim=(4, 4, 32),
+                 stencil="s7pt", st_iter=4, fuse=2, validate=True, iters=1,
+                 device="cpu")
+assert res["calls"]["step"] > 0
+assert (pencil_sweep_kernel.launches, pencil_sweep_4d_kernel.launches,
+        copy_intervals.launches, stage_copy.launches,
+        copy_storage.launches) == (0, 0, 0, 0, 0)
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 print("NO_JAX_OK")
@@ -90,8 +101,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
     assert _build.source_digest() == _build.source_digest()
-    assert {p.name for p in _build.sources()} == {"brick_copy.cu",
-                                                   "pencil_sweep.cu"}
+    assert {p.name for p in _build.sources()} == {
+        "brick_copy.cu", "pencil_sweep.cu", "pencil_sweep_4d.cu"}
 
 
 def test_tap_table_from_reference_params():

@@ -104,6 +104,7 @@ def _bad(name, bd=BD, **kw):
     _bad("s7pt", j_shift="gather"),
     _bad("s7pt", tile_j=3),
     _bad("s7pt", i_range=(0, 2)),
+    _bad("s7pt", batch=2),
 ])
 def test_invalid_arguments_raise_as_the_reference(args, kw):
     with pytest.raises(ValueError) as ref:
@@ -115,7 +116,6 @@ def test_invalid_arguments_raise_as_the_reference(args, kw):
 
 @pytest.mark.parametrize("kw", [
     dict(inplace=True),
-    dict(batch=2, batch_stride=36),
     dict(dtype=torch.bfloat16),
     dict(dtype=jnp.bfloat16),
 ])
