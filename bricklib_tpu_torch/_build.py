@@ -40,6 +40,8 @@ SIGNATURES = {
                        + [_VOID, _VOID, _INT, _INT, _VOID],
     "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 25
                           + [_VOID, _VOID, _INT, _INT, _VOID],
+    "bt_pencil_sweep_2d": [_VOID, _VOID, _VOID] + [_INT] * 15
+                          + [_VOID] * 4 + [_INT, _INT, _VOID],
     "bt_copy_intervals": [_VOID, _VOID, _INT, _I64, _VOID],
     "bt_copy_stage": [_VOID, _VOID, _VOID, _INT, _I64, _VOID],
     "bt_copy_storage": [_VOID, _VOID, _I64, _VOID],

@@ -38,12 +38,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from bricklib_tpu.codegen.evaluate import evaluate, resolve_const_from_params
-from bricklib_tpu.codegen.ir import StencilIR
-
 from .. import _build
-from ..convert import TapTable, as_ir, params_from_reference
 from ..core import not_ported
+from .evaluate import evaluate, resolve_const_from_params
+from .ir import StencilIR
+from .taps import TapTable, as_ir, params_from_reference
 
 FEATURES_ITEM = "remaining pencil_sweep features"
 KERNEL_THREADS = 256

@@ -28,11 +28,11 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..convert import as_ir, params_from_reference
 from ..core import not_ported
 from .pencil_kernel import (FEATURES_ITEM, MAX_TILE_I, SweepPlan, _is_f32,
                             sweep_fn)
 from .pencil_kernel import pencil_sweep_plain as pencil_sweep_4d_plain
+from .taps import as_ir, params_from_reference
 
 __all__ = ["K4_SMEM_BUDGET", "K4_THREADS", "pencil_sweep_4d",
            "pencil_sweep_4d_kernel", "pencil_sweep_4d_plain", "tile_4d"]

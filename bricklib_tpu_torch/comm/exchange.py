@@ -13,10 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bricklib_tpu.comm import BrickDecomp
 
 from .. import _build
 from ..core import not_ported
+from .decomp import BrickDecomp
 
 MULTI_GPU_ITEM = "multi-GPU"
 

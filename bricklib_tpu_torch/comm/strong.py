@@ -24,11 +24,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bricklib_tpu.comm import BrickDecomp
-from bricklib_tpu.utils.zmort import zmort_ids
-
 from .. import _build
 from ..core import not_ported
+from ..utils.zmort import zmort_ids
+from .decomp import BrickDecomp
 from .exchange import MULTI_GPU_ITEM, _merge_intervals, _row_vecs, check_stage
 
 

@@ -1,9 +1,7 @@
-"""Brick storage helpers for tensors (port of ``bricklib_tpu/core/setup.py``
-and ``core/multiarray.py``).
-
-Layout, grid tables and comparisons stay the reference's own numpy code,
-imported and not copied: the port only moves data between numpy on the
-host and tensors on a device.
+"""Brick storage: the layout, grid tables, dense/brick copies and
+comparisons (``layout``, ``setup``, ``compare``, ``multiarray``: numpy
+code, on torch tensors too where it says so), and the helpers that move
+storage between numpy on the host and tensors on a device.
 """
 
 from __future__ import annotations
@@ -11,12 +9,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bricklib_tpu.core import compare_arrays, random_array
-from bricklib_tpu.core import from_bricks as _from_bricks_np
-from bricklib_tpu.core import to_bricks as _to_bricks_np
+from .compare import BRICK_TOLERANCE, compare_arrays, compare_bricks
+from .layout import (CANONICAL_BDIM, LANE, SUBLANE, Brick, BrickInfo,
+                     BrickStorage, adj_index, adj_offsets,
+                     adjacency_from_grid, init_grid)
+from .multiarray import random_array, uninit_array, zero_array
+from .setup import from_bricks as _from_bricks_np
+from .setup import halo_extend
+from .setup import to_bricks as _to_bricks_np
 
-__all__ = ["compare_arrays", "from_bricks", "not_ported", "random_array",
-           "random_storage", "require_device", "to_bricks"]
+__all__ = ["BRICK_TOLERANCE", "CANONICAL_BDIM", "LANE", "SUBLANE", "Brick",
+           "BrickInfo", "BrickStorage", "adj_index", "adj_offsets",
+           "adjacency_from_grid", "compare_arrays", "compare_bricks",
+           "from_bricks", "halo_extend", "init_grid", "not_ported",
+           "random_array", "random_storage", "require_device", "to_bricks",
+           "uninit_array", "zero_array"]
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

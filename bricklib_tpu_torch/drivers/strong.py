@@ -30,18 +30,17 @@ import argparse
 import numpy as np
 import torch
 
-from bricklib_tpu.codegen.jnp_backend import dense_apply
-from bricklib_tpu.comm import skin3d_good
-from bricklib_tpu.core import compare_arrays, random_array, to_bricks
-from bricklib_tpu.core import from_bricks as from_bricks_np
-from bricklib_tpu.stencils import bench_params, stencil_by_name
-
 from ..bench.roofline import chain, make_dma_copy
 from ..bench.timing import mpi_statistics, time_mpi
+from ..codegen.jnp_backend import dense_apply
 from ..codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
+from ..comm import skin3d_good
 from ..comm.exchange import MULTI_GPU_ITEM
 from ..comm.strong import StrongDecomp, strong_exchange
-from ..core import not_ported, require_device
+from ..core import compare_arrays, not_ported, random_array, require_device
+from ..core.setup import from_bricks as from_bricks_np
+from ..core.setup import to_bricks
+from ..stencils import bench_params, stencil_by_name
 from .weak import device_label
 
 

@@ -26,18 +26,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bricklib_tpu.codegen.jnp_backend import dense_apply
-from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
-from bricklib_tpu.core import compare_arrays, random_array, to_bricks
-from bricklib_tpu.core import from_bricks as from_bricks_np
-from bricklib_tpu.stencils import bench_params, stencil_by_name
-
 from ..bench.roofline import chain, make_dma_copy
 from ..bench.timing import mpi_statistics, time_mpi
+from ..codegen.jnp_backend import dense_apply
 from ..codegen.pencil_kernel import pencil_sweep
 from ..codegen.pencil_kernel_4d import pencil_sweep_4d
+from ..comm import BrickDecomp, skinlist_by_name
 from ..comm.exchange import MULTI_GPU_ITEM, shift_exchange
-from ..core import not_ported, require_device
+from ..core import compare_arrays, not_ported, random_array, require_device
+from ..core.setup import from_bricks as from_bricks_np
+from ..core.setup import to_bricks
+from ..stencils import bench_params, stencil_by_name
 
 
 @dataclass
@@ -76,8 +75,9 @@ def _check_supported(dims, mesh_shape, backend, exchange, overlap,
     if tuple(mesh_shape) != (1,) * len(dims):
         raise not_ported(f"--mesh {mesh_shape}", MULTI_GPU_ITEM)
     if len(dims) not in (3, 4):
-        raise not_ported(f"{len(dims)}-D domains", "ranks 2/4 (the 2-D "
-                         "sweep)")
+        # as the reference driver: 2-D domains run through api.Problem
+        raise ValueError("pencil backend: 3-D or 4-D, innermost axis "
+                         "undistributed")
 
 
 def _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,

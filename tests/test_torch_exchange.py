@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu.comm.exchange import exchange_shift as exchange_shift_ref
 from bricklib_tpu.core import random_array
+from bricklib_tpu_torch import comm as port_comm
 from bricklib_tpu_torch.comm.exchange import (copy_intervals,
                                               copy_intervals_plain,
                                               exchange_shift, shift_exchange,
@@ -25,9 +26,14 @@ from bricklib_tpu_torch.convert import storage_from_reference
 MESH = (1, 1, 1)
 
 
-def _dec(dims=(32, 32, 32), bd=(8, 8, 32), gz=(8, 8, 0), skin="good"):
-    return BrickDecomp(dims=dims, ghost_depth=gz, bdims=bd).initialize(
-        skinlist_by_name(skin, 3))
+def _dec(dims=(32, 32, 32), bd=(8, 8, 32), gz=(8, 8, 0), skin="good",
+         pkg=port_comm):
+    """The test decomposition from ``pkg``'s ``comm``: the port's by
+    default, the reference's with ``pkg=None``."""
+    bdec, skins = ((BrickDecomp, skinlist_by_name) if pkg is None
+                   else (pkg.BrickDecomp, pkg.skinlist_by_name))
+    return bdec(dims=dims, ghost_depth=gz, bdims=bd).initialize(
+        skins(skin, len(dims)))
 
 
 @pytest.mark.parametrize("table_axes", [(2,), ()])
@@ -36,7 +42,8 @@ def test_exchange_matches_reference(table_axes, skin):
     dec = _dec(skin=skin)
     x = random_array((dec.nbricks,) + tuple(dec.bdims), np.float32, 11)
     want = np.asarray(exchange_shift_ref(
-        jnp.asarray(x), dec, ("x", "y", "z"), MESH, interpret=True,
+        jnp.asarray(x), _dec(skin=skin, pkg=None), ("x", "y", "z"), MESH,
+        interpret=True,
         table_axes=table_axes))
     dat = storage_from_reference(x, "cpu")
     before = copy_intervals.launches
@@ -48,10 +55,12 @@ def test_exchange_matches_reference(table_axes, skin):
 
 
 def test_exchange_with_ghost_in_every_axis_matches_reference():
-    dec = _dec(dims=(16, 16, 32), bd=(4, 4, 8), gz=(4, 4, 8))
+    cfg = dict(dims=(16, 16, 32), bd=(4, 4, 8), gz=(4, 4, 8))
+    dec = _dec(**cfg)
     x = random_array((dec.nbricks,) + tuple(dec.bdims), np.float32, 12)
     want = np.asarray(exchange_shift_ref(
-        jnp.asarray(x), dec, ("x", "y", "z"), MESH, interpret=True))
+        jnp.asarray(x), _dec(**cfg, pkg=None), ("x", "y", "z"), MESH,
+        interpret=True))
     got = exchange_shift(storage_from_reference(x, "cpu"), dec, MESH)
     assert len(shift_stages(dec, MESH)) == 3
     assert np.array_equal(got.numpy(), want)
@@ -107,13 +116,13 @@ def test_4d_exchange_matches_reference(table_axes):
     """The exchange plan is rank-generic: the 4-D step's SHIFT exchange
     (three staged axes with the i axis through the table) is bit-exact
     against the reference on a (1, 1, 1, 1) mesh."""
-    dec = BrickDecomp(dims=(8, 8, 8, 16), ghost_depth=(4, 4, 4, 0),
-                      bdims=(4, 4, 4, 16)).initialize(
-        skinlist_by_name("good", 4))
+    cfg = dict(dims=(8, 8, 8, 16), gz=(4, 4, 4, 0), bd=(4, 4, 4, 16))
+    dec = _dec(**cfg)
     x = random_array((dec.nbricks,) + tuple(dec.bdims), np.float32, 15)
     mesh = (1, 1, 1, 1)
     want = np.asarray(exchange_shift_ref(
-        jnp.asarray(x), dec, ("w", "x", "y", "z"), mesh, interpret=True,
+        jnp.asarray(x), _dec(**cfg, pkg=None), ("w", "x", "y", "z"), mesh,
+        interpret=True,
         table_axes=table_axes))
     got = exchange_shift(storage_from_reference(x, "cpu"), dec, mesh,
                          table_axes=table_axes)

@@ -6,7 +6,7 @@ The file imports no JAX, so it also runs on a machine without JAX, where
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 
-K1 (also batched over a subdomain stack) and K4 are compared on the
+K1 (also batched over a subdomain stack), K4 and K6 are compared on the
 bricks they write at abs-or-rel 1e-5 (FMA contraction and summation
 order); K2, K3 and K5 only copy, so they must be bit-exact.
 """
@@ -15,10 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from bricklib_tpu_torch import st
+from bricklib_tpu_torch.api import Problem
 from bricklib_tpu_torch.bench.roofline import copy_storage, copy_storage_plain
 from bricklib_tpu_torch.codegen.pencil_kernel import (pencil_sweep,
                                                       pencil_sweep_kernel,
                                                       pencil_sweep_plain)
+from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
+    pencil_sweep_2d, pencil_sweep_2d_kernel, pencil_sweep_2d_plain)
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
     pencil_sweep_4d, pencil_sweep_4d_kernel)
 from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
@@ -30,6 +34,8 @@ from bricklib_tpu_torch.comm.strong import (StrongDecomp, stage_copy,
 from bricklib_tpu_torch.core import compare_arrays, random_storage
 from bricklib_tpu_torch.drivers import strong, weak
 from bricklib_tpu_torch.stencils import bench_params, stencil_by_name
+
+from torch_2d_stencils import BUILDERS, PARAMS
 
 pytestmark = pytest.mark.gpu
 
@@ -197,3 +203,54 @@ def test_strong_step_on_card_validates(cuda):
               stencil="s7pt", st_iter=4, fuse=2)
     step, storage, plan, g = strong.build_step(**kw, device=cuda)
     assert strong.validate_step(step, storage, plan, g, "s7pt", 4)
+
+
+def _table_2d(gy, periodic):
+    t = np.arange(gy, dtype=np.int32)
+    if periodic:
+        t[0], t[-1] = t[-2], t[1]
+    return t
+
+
+@pytest.mark.parametrize("name,fuse,by,X,periodic,y_range", [
+    ("box9", 1, 32, 256, True, None), ("box9", 4, 32, 256, True, None),
+    ("lin5", 2, 8, 64, False, (0, 6)), ("asym9", 2, 4, 48, False, (0, 6)),
+    ("asym9", 1, 8, 16, False, None), ("wave", 1, 8, 128, False, (0, 6))])
+def test_sweep_2d_kernel_matches_plain(cuda, name, fuse, by, X, periodic,
+                                       y_range):
+    table = _table_2d(6, periodic)
+    fn = pencil_sweep_2d(BUILDERS[name](st), table, (by, X), 6, PARAMS,
+                         y_range=y_range, fuse=fuse)
+    nf = len(fn.plan.fields)
+    xs = [torch.rand((6, by, X), generator=torch.Generator().manual_seed(
+        20 + f)).to(cuda) for f in range(nf)]
+    before = pencil_sweep_2d_kernel.launches
+    got = fn(*xs)
+    assert pencil_sweep_2d_kernel.launches == before + 1
+    want = pencil_sweep_2d_plain(xs, torch.from_numpy(fn.plan.table).to(cuda),
+                                 fn.plan)
+    got = got if isinstance(got, tuple) else (got,)
+    w = fn.plan.written_bricks()
+    for g, wv in zip(got, want):
+        assert compare_arrays(g.cpu().numpy()[w], wv.cpu().numpy()[w], 1e-5)
+
+
+def test_sweep_2d_kernel_refuses_nonlinear_stencils(cuda):
+    fn = pencil_sweep_2d(BUILDERS["nonlin"](st), np.arange(6), (4, 16), 6)
+    with pytest.raises(NotImplementedError, match="nonlinear"):
+        fn(torch.zeros((6, 4, 16), device=cuda))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("box9", dict(dims=(128, 64), st_iter=4)),
+    ("wave", dict(dims=(64, 32), field=("p", "v"), st_iter=2)),
+    ("s7pt", dict(dims=(16, 16, 32), st_iter=4)),
+    ("mpi9pt", dict(dims=(4, 16, 16, 16), st_iter=2))])
+def test_problem_on_card_matches_cpu(cuda, name, kw):
+    sd = BUILDERS[name](st) if name in BUILDERS else name
+    got = Problem(stencil=sd, device=cuda, **kw).init(seed=3).step(2)
+    want = Problem(stencil=sd, device="cpu", **kw).init(seed=3).step(2)
+    a, b = got.result(), want.result()
+    for k in (a if isinstance(a, dict) else [None]):
+        x, y = (a[k], b[k]) if k else (a, b)
+        assert compare_arrays(x, y, 1e-5) and np.isfinite(x).all()

@@ -1,5 +1,6 @@
-"""The port stands without JAX: it never imports ``jax``, a CPU run never
-launches a kernel, and the kernel build raises instead of falling back."""
+"""The port stands without JAX: it never imports ``jax`` nor anything of the
+JAX package ``bricklib_tpu``, a CPU run never launches a kernel, and the
+kernel build raises instead of falling back."""
 
 import os
 import pathlib
@@ -26,10 +27,13 @@ import sys
 import bricklib_tpu_torch
 from bricklib_tpu_torch.drivers import strong, weak
 from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
+from bricklib_tpu_torch.codegen.pencil_kernel_2d import pencil_sweep_2d_kernel
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import pencil_sweep_4d_kernel
 from bricklib_tpu_torch.comm.exchange import copy_intervals
 from bricklib_tpu_torch.comm.strong import stage_copy
 from bricklib_tpu_torch.bench.roofline import copy_storage
+from bricklib_tpu_torch.api import Problem
+from bricklib_tpu_torch.st import ConstRef, Grid, Index, load_stencil_module
 
 res = weak.run(dims=(32, 32, 32), bdim=(8, 8, 32), stencil="s7pt",
                st_iter=8, fuse=4, table_periodic=False, backend="pencil",
@@ -43,11 +47,24 @@ res = strong.run(dom=(32, 32, 32), sdom=(16, 16, 32), bdim=(4, 4, 32),
                  stencil="s7pt", st_iter=4, fuse=2, validate=True, iters=1,
                  device="cpu")
 assert res["calls"]["step"] > 0
-assert (pencil_sweep_kernel.launches, pencil_sweep_4d_kernel.launches,
-        copy_intervals.launches, stage_copy.launches,
-        copy_storage.launches) == (0, 0, 0, 0, 0)
+i, j = Index(0), Index(1)
+g, o = Grid("in", 2), Grid("out", 2)
+o(i, j).assign(ConstRef("0.6") * g(i, j)
+               + ConstRef("0.1") * (g(i + 1, j) + g(i - 1, j)
+                                    + g(i, j + 1) + g(i, j - 1)))
+box = load_stencil_module({"STENCIL": [o]})[0]
+for dims, sd, st_iter in (((128, 16), box, 4), ((16, 16, 32), "s7pt", 4),
+                          ((4, 16, 16, 16), "mpi9pt", 2)):
+    p = Problem(dims=dims, stencil=sd, st_iter=st_iter, device="cpu")
+    assert p.init(seed=1).step(1).result().shape == dims
+assert (pencil_sweep_kernel.launches, pencil_sweep_2d_kernel.launches,
+        pencil_sweep_4d_kernel.launches, copy_intervals.launches,
+        stage_copy.launches, copy_storage.launches) == (0,) * 6
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
+ref_mods = sorted(m for m in sys.modules
+                  if m == "bricklib_tpu" or m.startswith("bricklib_tpu."))
+assert not ref_mods, ref_mods
 print("NO_JAX_OK")
 """
 
@@ -68,6 +85,12 @@ def test_no_source_file_imports_jax():
         for line in f.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")
+                        ), f"{f.relative_to(REPO)}: {s}"
+            assert not (s.startswith("from bricklib_tpu.")
+                        or s.startswith("from bricklib_tpu import")
+                        or s == "import bricklib_tpu"
+                        or s.startswith("import bricklib_tpu ")
+                        or s.startswith("import bricklib_tpu.")
                         ), f"{f.relative_to(REPO)}: {s}"
 
 
@@ -102,11 +125,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build()
     assert _build.source_digest() == _build.source_digest()
     assert {p.name for p in _build.sources()} == {
-        "brick_copy.cu", "pencil_sweep.cu", "pencil_sweep_4d.cu"}
+        "brick_copy.cu", "pencil_sweep.cu", "pencil_sweep_2d.cu",
+        "pencil_sweep_4d.cu"}
 
 
 def test_tap_table_from_reference_params():
-    from bricklib_tpu.stencils import bench_params
+    from bricklib_tpu_torch.stencils import bench_params
 
     taps = params_from_reference(bench_params(), "s7pt")
     assert taps.offsets.shape == (7, 3) and taps.coeffs.dtype == "float32"
@@ -118,7 +142,7 @@ def test_tap_table_from_reference_params():
 
 
 def test_bricks_round_trip_and_random_storage():
-    from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
+    from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
 
     dec = BrickDecomp(dims=(16, 16, 16), ghost_depth=(4, 4, 0),
                       bdims=(4, 4, 16)).initialize(skinlist_by_name("good",

@@ -19,6 +19,8 @@ from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
 from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu.core import compare_arrays, random_array
 from bricklib_tpu.stencils import bench_params, stencil_by_name
+from bricklib_tpu_torch import comm as port_comm
+from bricklib_tpu_torch import stencils as port_stencils
 from bricklib_tpu_torch.codegen.pencil_kernel import (pencil_stencil,
                                                       pencil_sweep,
                                                       pencil_sweep_kernel,
@@ -29,9 +31,17 @@ BD = (8, 8, 32)
 TOL = 1e-5
 
 
-def _dec():
-    return BrickDecomp(dims=(32, 32, 32), ghost_depth=(8, 8, 0),
-                       bdims=BD).initialize(skinlist_by_name("good", 3))
+def _dec(pkg=None):
+    """The test decomposition, built by the reference's ``comm`` or by
+    ``pkg`` (the port's)."""
+    bd, skins = ((BrickDecomp, skinlist_by_name) if pkg is None
+                 else (pkg.BrickDecomp, pkg.skinlist_by_name))
+    return bd(dims=(32, 32, 32), ghost_depth=(8, 8, 0),
+              bdims=BD).initialize(skins("good", 3))
+
+
+def _port_sd(name):
+    return port_stencils.stencil_by_name(name)[0]
 
 
 def _case(dec, grid_kind, ranges):
@@ -55,14 +65,16 @@ CASES = [("s7pt", 1, "periodic", "skip"),
 def test_sweep_matches_reference(name, fuse, grid_kind, ranges):
     dec = _dec()
     grid, kr, jr = _case(dec, grid_kind, ranges)
+    pgrid, pkr, pjr = _case(_dec(port_comm), grid_kind, ranges)
+    assert np.array_equal(pgrid, grid) and (pkr, pjr) == (kr, jr)
     x = random_array((dec.nbricks,) + BD, np.float32, 5)
-    sd = stencil_by_name(name)[0]
     prm = bench_params()
     want = np.asarray(pallas_pencil_sweep(
-        sd, grid, BD, dec.nbricks, prm, k_range=kr, j_range=jr, fuse=fuse,
-        interpret=True)(jnp.asarray(x)))
-    fn = pencil_sweep(sd, grid, BD, dec.nbricks, prm, k_range=kr,
-                      j_range=jr, fuse=fuse)
+        stencil_by_name(name)[0], grid, BD, dec.nbricks, prm, k_range=kr,
+        j_range=jr, fuse=fuse, interpret=True)(jnp.asarray(x)))
+    fn = pencil_sweep(_port_sd(name), pgrid, BD, dec.nbricks,
+                      port_stencils.bench_params(), k_range=kr, j_range=jr,
+                      fuse=fuse)
     before = pencil_sweep_kernel.launches
     got = fn(storage_from_reference(x, "cpu")).numpy()
     assert pencil_sweep_kernel.launches == before
@@ -72,11 +84,11 @@ def test_sweep_matches_reference(name, fuse, grid_kind, ranges):
 
 
 def test_pencil_stencil_is_the_skip_or_ghost_sweep():
-    dec = _dec()
+    dec = _dec(port_comm)
     GK, GJ = dec.grid.shape[:2]
     x = storage_from_reference(
         random_array((dec.nbricks,) + BD, np.float32, 6), "cpu")
-    sd = stencil_by_name("s7pt")[0]
+    sd = _port_sd("s7pt")
     for skip in (0, 1):
         a = pencil_stencil(sd, dec.grid, BD, (1, 1), dec.nbricks,
                            bench_params(), skip=skip, fuse=2)
@@ -88,9 +100,14 @@ def test_pencil_stencil_is_the_skip_or_ghost_sweep():
 
 
 def _bad(name, bd=BD, **kw):
-    """(reference kwargs, grid) for an invalid sweep on a 6x6 table."""
+    """(positional arguments with the stencil's name, keyword arguments)
+    for an invalid sweep on a 6x6 table."""
     grid = np.arange(36, dtype=np.int32).reshape(6, 6)
-    return (stencil_by_name(name)[0], grid, bd, 36, bench_params()), kw
+    return (name, grid, bd, 36, bench_params()), kw
+
+
+def _port_args(args):
+    return (_port_sd(args[0]),) + args[1:]
 
 
 @pytest.mark.parametrize("args,kw", [
@@ -108,9 +125,10 @@ def _bad(name, bd=BD, **kw):
 ])
 def test_invalid_arguments_raise_as_the_reference(args, kw):
     with pytest.raises(ValueError) as ref:
-        pallas_pencil_sweep(*args, interpret=True, **kw)
+        pallas_pencil_sweep(stencil_by_name(args[0])[0], *args[1:],
+                            interpret=True, **kw)
     with pytest.raises(ValueError) as port:
-        pencil_sweep(*args, **kw)
+        pencil_sweep(*_port_args(args), **kw)
     assert str(port.value) == str(ref.value)
 
 
@@ -122,11 +140,11 @@ def test_invalid_arguments_raise_as_the_reference(args, kw):
 def test_unported_features_raise(kw):
     args, _ = _bad("s7pt")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pencil_sweep(*args, **kw)
+        pencil_sweep(*_port_args(args), **kw)
 
 
 def test_unported_layouts_and_systems_raise():
-    sd = stencil_by_name("s7pt")[0]
+    sd = _port_sd("s7pt")
     grid3 = np.arange(72, dtype=np.int32).reshape(6, 6, 2)
     with pytest.raises(NotImplementedError, match="i-bricked"):
         pencil_sweep(sd, grid3, BD, 72, bench_params(), i_ghost=1)
@@ -136,13 +154,13 @@ def test_unported_layouts_and_systems_raise():
 
 
 def test_sweep_checks_storage_shape():
-    fn = pencil_sweep(*_bad("s7pt")[0])
+    fn = pencil_sweep(*_port_args(_bad("s7pt")[0]))
     with pytest.raises(ValueError, match="storage shape"):
         fn(torch.zeros((35,) + BD))
 
 
 def test_kernel_refuses_cpu_tensors():
-    fn = pencil_sweep(*_bad("s7pt")[0])
+    fn = pencil_sweep(*_port_args(_bad("s7pt")[0]))
     x = torch.zeros((36,) + BD)
     before = pencil_sweep_kernel.launches
     with pytest.raises(ValueError, match="CUDA"):

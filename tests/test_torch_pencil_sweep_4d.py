@@ -20,6 +20,10 @@ from bricklib_tpu.codegen.pencil_kernel_4d import pallas_pencil_sweep_4d
 from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu.core import compare_arrays, random_array
 from bricklib_tpu.stencils import bench_params, stencil_by_name
+from bricklib_tpu import st as ref_st
+from bricklib_tpu_torch import comm as port_comm
+from bricklib_tpu_torch import st as port_st
+from bricklib_tpu_torch import stencils as port_stencils
 from bricklib_tpu_torch.codegen import pencil_kernel_4d
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
     pencil_sweep_4d, pencil_sweep_4d_kernel, pencil_sweep_4d_plain, tile_4d)
@@ -29,16 +33,21 @@ BD = (2, 2, 4, 16)
 TOL = 5e-5
 
 
-def _dec(bd=BD, dims=(4, 6, 8, 16)):
-    return BrickDecomp(dims=dims, ghost_depth=bd[:3] + (0,),
-                       bdims=bd).initialize(skinlist_by_name("good", 4))
+def _dec(bd=BD, dims=(4, 6, 8, 16), pkg=None):
+    """The test decomposition from the reference's ``comm``, or from
+    ``pkg`` (the port's)."""
+    bdec, skins = ((BrickDecomp, skinlist_by_name) if pkg is None
+                   else (pkg.BrickDecomp, pkg.skinlist_by_name))
+    return bdec(dims=dims, ghost_depth=bd[:3] + (0,),
+                bdims=bd).initialize(skins("good", 4))
 
 
-def _mixed_radius():
+def _mixed_radius(st):
     """fuse=2 with asymmetric radii (w=1, k=2, j=2, i=1), as in the
-    reference's ``test_pencil_4d_fused_mixed_radii``."""
-    from bricklib_tpu.st import FloatLiteral, Grid, Index
-    from bricklib_tpu.st.loader import load_stencil_module
+    reference's ``test_pencil_4d_fused_mixed_radii``, built with the eDSL
+    package ``st`` (the reference's or the port's)."""
+    FloatLiteral, Grid, Index = st.FloatLiteral, st.Grid, st.Index
+    load_stencil_module = st.load_stencil_module
 
     inp, out = Grid("in", 4), Grid("out", 4)
     i, j, k, w = Index(0), Index(1), Index(2), Index(3)
@@ -71,17 +80,25 @@ CASES = [("mpi9pt", 1, "periodic", "skip"),
 @pytest.mark.parametrize("name,fuse,grid_kind,ranges", CASES)
 def test_sweep_4d_matches_reference(name, fuse, grid_kind, ranges):
     bd = (2, 4, 4, 16) if name == "mixed" else BD
-    dec = _dec(bd, dims=(4, 8, 8, 16) if name == "mixed" else (4, 6, 8, 16))
-    grid = dec.grid if grid_kind == "grid" else dec.periodic_grid(
-        (0, 1, 2, 3))
-    sd = _mixed_radius() if name == "mixed" else stencil_by_name(name)[0]
+    dims = (4, 8, 8, 16) if name == "mixed" else (4, 6, 8, 16)
+    grids = []
+    for dec in (_dec(bd, dims), _dec(bd, dims, port_comm)):
+        grids.append(dec.grid if grid_kind == "grid"
+                     else dec.periodic_grid((0, 1, 2, 3)))
+    grid, pgrid = grids
+    assert np.array_equal(grid, pgrid)
+    if name == "mixed":
+        sd, psd = _mixed_radius(ref_st), _mixed_radius(port_st)
+    else:
+        sd, psd = (stencil_by_name(name)[0],
+                   port_stencils.stencil_by_name(name)[0])
     prm = {} if name == "mixed" else bench_params()
     kw = _ranges(ranges, grid.shape)
     x = random_array((dec.nbricks,) + bd, np.float32, 21)
     want = np.asarray(pallas_pencil_sweep_4d(
         sd, grid, bd, dec.nbricks, prm, fuse=fuse, interpret=True,
         **kw)(jnp.asarray(x)))
-    fn = pencil_sweep_4d(sd, grid, bd, dec.nbricks, prm, fuse=fuse, **kw)
+    fn = pencil_sweep_4d(psd, pgrid, bd, dec.nbricks, prm, fuse=fuse, **kw)
     before = pencil_sweep_4d_kernel.launches
     got = fn(storage_from_reference(x, "cpu")).numpy()
     assert pencil_sweep_4d_kernel.launches == before
@@ -104,9 +121,7 @@ def test_tile_of_the_4d_step():
     """At the 4-D step's shape (brick (4, 8, 8, 512), fuse 2, radius 1)
     the least-work tile that fits the budget is the whole w extent and
     8 i lanes; a budget too small for any tile raises."""
-    dec = BrickDecomp(dims=(16, 64, 128, 512), ghost_depth=(4, 8, 8, 0),
-                      bdims=(4, 8, 8, 512)).initialize(
-        skinlist_by_name("good", 4))
+    dec = _dec((4, 8, 8, 512), (16, 64, 128, 512), port_comm)
     fn = pencil_sweep_4d("mpi9pt", dec.grid, dec.bdims, dec.nbricks,
                          bench_params(), fuse=2)
     assert dec.nbricks == 1081
@@ -116,7 +131,8 @@ def test_tile_of_the_4d_step():
 
 def test_no_tile_raises(monkeypatch):
     monkeypatch.setattr(pencil_kernel_4d, "K4_SMEM_BUDGET", 1024)
-    fn = pencil_sweep_4d("mpi9pt", _dec().grid, BD, _dec().nbricks,
+    dec = _dec(pkg=port_comm)
+    fn = pencil_sweep_4d("mpi9pt", dec.grid, BD, dec.nbricks,
                          bench_params(), fuse=2)
     with pytest.raises(ValueError, match="no K4 tile"):
         tile_4d(fn.plan)
@@ -125,7 +141,15 @@ def test_no_tile_raises(monkeypatch):
 def _bad(name="mpi9pt", bd=BD, grid_shape=(4, 5, 4), **kw):
     n = int(np.prod(grid_shape))
     grid = np.arange(n, dtype=np.int32).reshape(grid_shape)
-    return (stencil_by_name(name)[0], grid, bd, n, bench_params()), kw
+    return (name, grid, bd, n, bench_params()), kw
+
+
+def _ref_args(args):
+    return (stencil_by_name(args[0])[0],) + args[1:]
+
+
+def _port_args(args):
+    return (port_stencils.stencil_by_name(args[0])[0],) + args[1:]
 
 
 @pytest.mark.parametrize("args,kw", [
@@ -140,18 +164,18 @@ def _bad(name="mpi9pt", bd=BD, grid_shape=(4, 5, 4), **kw):
 ])
 def test_invalid_arguments_raise_as_the_reference(args, kw):
     with pytest.raises(ValueError) as ref:
-        pallas_pencil_sweep_4d(*args, interpret=True, **kw)
+        pallas_pencil_sweep_4d(*_ref_args(args), interpret=True, **kw)
     with pytest.raises(ValueError) as port:
-        pencil_sweep_4d(*args, **kw)
+        pencil_sweep_4d(*_port_args(args), **kw)
     assert str(port.value) == str(ref.value)
 
 
 def test_three_d_stencil_is_refused_as_the_reference():
     args, _ = _bad("s7pt")
     with pytest.raises(NotImplementedError) as ref:
-        pallas_pencil_sweep_4d(*args, interpret=True)
+        pallas_pencil_sweep_4d(*_ref_args(args), interpret=True)
     with pytest.raises(NotImplementedError) as port:
-        pencil_sweep_4d(*args)
+        pencil_sweep_4d(*_port_args(args))
     assert str(port.value) == str(ref.value)
 
 
@@ -160,17 +184,17 @@ def test_three_d_stencil_is_refused_as_the_reference():
 def test_unported_features_raise(kw):
     args, _ = _bad()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pencil_sweep_4d(*args, **kw)
+        pencil_sweep_4d(*_port_args(args), **kw)
 
 
 def test_range_outside_the_grid_raises():
     args, _ = _bad()
     with pytest.raises(ValueError, match="outside grid"):
-        pencil_sweep_4d(*args, w_range=(0, 5))
+        pencil_sweep_4d(*_port_args(args), w_range=(0, 5))
 
 
 def test_kernel_refuses_cpu_tensors_and_storage_is_checked():
-    fn = pencil_sweep_4d(*_bad()[0])
+    fn = pencil_sweep_4d(*_port_args(_bad()[0]))
     x = torch.zeros((80,) + BD)
     before = pencil_sweep_4d_kernel.launches
     with pytest.raises(ValueError, match="CUDA"):

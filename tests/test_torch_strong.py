@@ -26,6 +26,8 @@ from bricklib_tpu.comm.strong import StrongDecomp as StrongDecompRef
 from bricklib_tpu.comm.strong import exchange_strong_shift as strong_ref
 from bricklib_tpu.core import compare_arrays, random_array
 from bricklib_tpu.stencils import bench_params, stencil_by_name
+from bricklib_tpu_torch import comm as port_comm
+from bricklib_tpu_torch import stencils as port_stencils
 from bricklib_tpu_torch.codegen.pencil_kernel import (pencil_sweep,
                                                       pencil_sweep_kernel)
 from bricklib_tpu_torch.comm.exchange import check_stage
@@ -49,9 +51,11 @@ STEP = dict(dom=(32, 32, 32), sdom=(16, 16, 32), bdim=(4, 4, 32),
 
 
 def _plans(cfg, mesh=(1, 1, 1)):
-    skin = skinlist_by_name("good", 3)
-    return (StrongDecompRef(mesh_shape=mesh, **cfg).initialize(skin),
-            StrongDecomp(mesh_shape=mesh, **cfg).initialize(skin))
+    """(reference plan, port plan), each with its own package's skin."""
+    return (StrongDecompRef(mesh_shape=mesh, **cfg).initialize(
+                skinlist_by_name("good", 3)),
+            StrongDecomp(mesh_shape=mesh, **cfg).initialize(
+                port_comm.skinlist_by_name("good", 3)))
 
 
 @pytest.mark.parametrize("cfg,mesh", [(PENCIL, (1, 1, 1)),
@@ -84,7 +88,7 @@ def test_plan_checks_as_the_reference():
                 skinlist_by_name("good", 3))
         with pytest.raises(ValueError) as port:
             StrongDecomp(mesh_shape=mesh, **bad).initialize(
-                skinlist_by_name("good", 3))
+                port_comm.skinlist_by_name("good", 3))
         assert str(port.value) == str(ref.value)
 
 
@@ -161,13 +165,12 @@ def test_batched_sweep_matches_reference(fuse, ranges):
     kw = dict(batch=nsub, batch_stride=nb, fuse=fuse)
     if ranges == "ghost":
         kw.update(k_range=(0, GK), j_range=(0, GJ))
-    sd = stencil_by_name("s7pt")[0]
     x = random_array((nsub * nb,) + PENCIL["bdims"], np.float32, 19)
     want = np.asarray(pallas_pencil_sweep(
-        sd, kg, PENCIL["bdims"], nsub * nb, bench_params(), interpret=True,
-        **kw)(jnp.asarray(x)))
-    fn = pencil_sweep(sd, kg, PENCIL["bdims"], nsub * nb, bench_params(),
-                      **kw)
+        stencil_by_name("s7pt")[0], kg, PENCIL["bdims"], nsub * nb,
+        bench_params(), interpret=True, **kw)(jnp.asarray(x)))
+    fn = pencil_sweep(port_stencils.stencil_by_name("s7pt")[0], kg,
+                      PENCIL["bdims"], nsub * nb, bench_params(), **kw)
     before = pencil_sweep_kernel.launches
     got = fn(storage_from_reference(x, "cpu")).numpy()
     assert pencil_sweep_kernel.launches == before

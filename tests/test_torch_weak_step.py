@@ -20,6 +20,7 @@ from bricklib_tpu.codegen.pencil_kernel import pallas_pencil_sweep
 from bricklib_tpu.codegen.pencil_kernel_4d import pallas_pencil_sweep_4d
 from bricklib_tpu.comm.exchange import exchange_shift as exchange_shift_ref
 from bricklib_tpu.core import compare_arrays
+from bricklib_tpu.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu.stencils import bench_params, stencil_by_name
 from bricklib_tpu_torch.drivers import weak
 
@@ -30,7 +31,19 @@ STEP4 = dict(dims=(8, 8, 8, 16), bdim=(4, 4, 4, 16), stencil="mpi9pt",
              st_iter=4, fuse=2, table_periodic=False)
 
 
+def _reference_dec(dec):
+    """The reference's own ``BrickDecomp`` for the port's ``dec``: the
+    same arguments, so the same grid table and storage order."""
+    ref = BrickDecomp(dims=dec.dims, ghost_depth=dec.ghost_depth,
+                      bdims=dec.bdims).initialize(
+        skinlist_by_name("good", len(dec.dims)))
+    assert np.array_equal(ref.grid, dec.grid)
+    assert ref.nbricks == dec.nbricks
+    return ref
+
+
 def _reference_step(x, dec):
+    dec = _reference_dec(dec)
     sd = stencil_by_name("s7pt")[0]
     GK, GJ = dec.grid.shape[:2]
     bd, nb, prm = tuple(dec.bdims), dec.nbricks, bench_params()
@@ -117,6 +130,7 @@ def test_bad_step_arguments_raise():
 
 
 def _reference_step_4d(x, dec):
+    dec = _reference_dec(dec)
     sd = stencil_by_name("mpi9pt")[0]
     G = dec.grid.shape[:3]
     bd, nb, prm = tuple(dec.bdims), dec.nbricks, bench_params()
@@ -167,12 +181,14 @@ def test_cli_runs_the_4d_step_on_cpu(capsys):
     assert "validated against array twin: OK" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(dims=(32, 32), bdim=(8, 32)), "2-D"),
-    (dict(mesh_shape=(1, 1, 1)), "multi-GPU"),
-])
-def test_unported_ranks_and_meshes_raise(kw, item):
+@pytest.mark.parametrize("kw,err,match", [
+    # the reference driver refuses 2-D domains too: they run through
+    # api.Problem
+    (dict(dims=(32, 32), bdim=(8, 32)), ValueError, "3-D or 4-D"),
+    (dict(mesh_shape=(1, 1, 1)), NotImplementedError, "multi-GPU"),
+], ids=["kw0-2-D", "kw1-multi-GPU"])
+def test_unported_ranks_and_meshes_raise(kw, err, match):
     args = dict(STEP4, backend="pencil", device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=match):
         weak.run(**args)
