@@ -3,9 +3,9 @@
 The sources are compiled by hand with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` per source, all started together, then linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The
-library lands in ``build/torch_kernels/<sha256 of the sources>/`` at the
-root of the checkout on first use, so a changed source builds anew and an
-unchanged one is built once.  Nothing is compiled at import time: the CPU
+library lands in ``build/torch_kernels/<sha256 of the sources and
+headers>/`` at the root of the checkout on first use, so a changed source
+or header builds anew and an unchanged one is built once.  Nothing is compiled at import time: the CPU
 tests import every module, and this machine may have no ``nvcc``.
 
 Every C entry point returns its ``cudaGetLastError()``; :func:`check`
@@ -42,6 +42,11 @@ SIGNATURES = {
                           + [_VOID, _VOID, _INT, _INT, _VOID],
     "bt_pencil_sweep_2d": [_VOID, _VOID, _VOID] + [_INT] * 15
                           + [_VOID] * 4 + [_INT, _INT, _VOID],
+    "bt_pencil_sweep_mxu": [_VOID, _VOID, _VOID] + [_INT] * 16
+                           + [_VOID, _INT] + [_VOID] * 4
+                           + [_INT, _INT, _VOID],
+    "bt_dense_stencil": [_VOID, _VOID] + [_INT] * 14 + [_VOID] * 5
+                        + [_INT, _INT, _VOID],
     "bt_copy_intervals": [_VOID, _VOID, _INT, _I64, _VOID],
     "bt_copy_stage": [_VOID, _VOID, _VOID, _INT, _I64, _VOID],
     "bt_copy_storage": [_VOID, _VOID, _I64, _VOID],
@@ -56,8 +61,9 @@ def sources() -> list[Path]:
 
 
 def source_digest() -> str:
+    """sha256 of the sources, the headers they include and the flags."""
     h = hashlib.sha256()
-    for p in sources():
+    for p in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

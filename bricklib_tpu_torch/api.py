@@ -12,9 +12,12 @@ The port runs the pencil backend on one device, with every axis
 periodic through the grid table (no ghost exchange): rank 2 over kernel
 K6 (``codegen.pencil_kernel_2d``: single fields, aux fields and stencil
 systems), ranks 3 and 4 over kernels K1 and K4 (single-field,
-single-input stencils).  ``device`` defaults to ``cuda`` and raises where
-there is none; the tests pass ``device="cpu"``, which runs the kernels'
-plain versions.  The reference's other options raise
+single-input stencils).  ``backend="mxu"`` runs a single-field linear
+3-D stencil over flat-pencil storage ``(nbricks, BK, BJ*BI)``, one
+kernel K8 sweep (``codegen.mxu_kernel``) per iteration.  ``device``
+defaults to ``cuda`` and raises where there is none; the tests pass
+``device="cpu"``, which runs the kernels' plain versions.  The
+reference's other options raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
@@ -26,11 +29,13 @@ import torch
 from .codegen.evaluate import resolve_const_from_params
 from .codegen.ir import (PASS_FUSE_MAX, StencilIR, fold_linear,
                          generic_pass_estimate, vpu_pass_estimate)
+from .codegen.mxu_kernel import pencil_sweep_mxu
 from .codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
 from .codegen.pencil_kernel_2d import pencil_sweep_2d
 from .codegen.pencil_kernel_4d import pencil_sweep_4d, tile_4d
 from .comm import BrickDecomp, skinlist_by_name
 from .comm.exchange import MULTI_GPU_ITEM
+from .convert import storage_from_reference
 from .core import not_ported, random_array, require_device
 from .core.setup import from_bricks, to_bricks
 from .st.loader import StencilDef
@@ -153,11 +158,20 @@ class Problem:
                              "devices", MULTI_GPU_ITEM)
         if backend == "jnp":
             raise not_ported("backend='jnp'", ORACLE_ITEM)
-        if backend == "mxu":
-            raise not_ported("backend='mxu' (kernel 9)", REST_ITEM)
-        if backend != "pencil":
+        if backend not in ("pencil", "mxu"):
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
+        if self.schedule and backend != "pencil":
+            raise ValueError(f"schedule= tunes the pencil backends; "
+                             f"backend is {backend!r}")
+        if backend == "mxu":
+            # flat-pencil sweep (codegen.mxu_kernel): single linear
+            # evolving field, 3-D, fuse=1, shift exchange
+            if nd != 3 or nfld != 1 or self.aux_names:
+                raise ValueError("backend='mxu' runs single-field "
+                                 "single-input 3-D stencils")
+            if exchange != "shift":
+                raise ValueError("backend='mxu' uses exchange='shift'")
         if bdims is None:
             by2 = (32 if nd == 2 and self.dims[0] % 32 == 0
                    and self.dims[0] >= 128 else 8)
@@ -213,7 +227,19 @@ class Problem:
         # one device: every axis is periodic through the grid table
         table_axes = tuple(range(nd))
         kgrid = dec.periodic_grid(table_axes)
-        if nd == 2:
+        if backend == "mxu":
+            # fuse=1: the factorized form is the amortization
+            fuse = 1
+            GK, GJ = kgrid.shape[:2]
+            kern = pencil_sweep_mxu(self.sdef, kgrid, bd, dec.nbricks,
+                                    self.params, k_range=(1, GK - 1),
+                                    j_range=(1, GJ - 1))
+            plan = kern.plan
+            info = {"kernel": "K8 pencil_sweep_mxu",
+                    "w_profiles": kern.n_wprofiles,
+                    "taps": [plan.n_ktaps()]}
+            info["tile_i"], info["smem_bytes"] = plan.tile()
+        elif nd == 2:
             fuse = 1
             if _sch_fuse is not None:
                 if _sch_fuse > 1 and (nfld > 1 or self.aux_names):
@@ -289,7 +315,7 @@ class Problem:
 
         self._one = one
         self._exec_plan = {
-            "backend": "pencil", "fuse": fuse, "exchange": "table",
+            "backend": backend, "fuse": fuse, "exchange": "table",
             "table_axes": list(table_axes), "kernels": [info],
         }
         self._dats = None
@@ -311,9 +337,10 @@ class Problem:
 
     def owned_mask(self) -> torch.Tensor:
         """Broadcastable 0/1 mask over the storage selecting the OWNED
-        brick rows."""
+        brick rows (storage rank 3 for the flat-pencil backend)."""
         m = self.dec.owned_mask()
-        m = m.reshape((-1,) + (1,) * len(self.bdims))
+        srank = 3 if self.backend == "mxu" else 1 + len(self.bdims)
+        m = m.reshape((-1,) + (1,) * (srank - 1))
         return torch.from_numpy(np.ascontiguousarray(m)).to(self.device)
 
     def describe(self) -> dict:
@@ -321,6 +348,8 @@ class Problem:
         exchange form per domain axis, and per kernel its tile, shared
         memory and folded tap counts."""
         nd = len(self.dims)
+        form = ("table-periodic" if self.backend == "pencil"
+                else "local ghost copy")
         return {
             "dims": list(self.dims), "bdims": list(self.bdims),
             "mesh": list(self.mesh_shape), "slices": self.slices,
@@ -328,7 +357,7 @@ class Problem:
             "st_iter": self.st_iter,
             "dtype": np.dtype(self.dtype).name,
             "fields": list(self.fields), "aux": list(self.aux_names),
-            "exchange_axes": {a: "table-periodic" for a in range(nd)},
+            "exchange_axes": {a: form for a in range(nd)},
             **({"schedule": dict(self.schedule)} if self.schedule
                else {}),
             **self._exec_plan,
@@ -387,6 +416,9 @@ class Problem:
                              f"inputs are {self.aux_names}")
         aux_stk = [self._stack_global(aux[n]) for n in self.aux_names]
         dat_stk = [self._stack_global(array[f_]) for f_ in self.fields]
+        if self.backend == "mxu":   # flat-pencil storage (a view)
+            dat_stk = [d.reshape(d.shape[0], self.bdims[0], -1)
+                       for d in dat_stk]
         self._aux = tuple(self._put(s) for s in aux_stk)
         self._dats = tuple(self._put(s) for s in dat_stk)
         return self
@@ -432,8 +464,10 @@ class Problem:
         return self
 
     def load(self, path: str):
-        """Restore a checkpoint saved by :meth:`save` (the configuration
-        must match this Problem)."""
+        """Restore a checkpoint saved by :meth:`save`, or by the
+        reference's ``Problem.save`` (the configuration must match this
+        Problem; the flat-pencil backend's state is ``(nbricks, BK,
+        BJ*BI)``)."""
         z = np.load(path if path.endswith(".npz") else path + ".npz")
         for name, mine in (("dims", self.dims), ("mesh", self.mesh_shape),
                            ("slices", (self.slices,)),
@@ -450,9 +484,9 @@ class Problem:
                    + [n for n in self.aux_names if f"aux_{n}" not in z])
         if missing:
             raise ValueError(f"checkpoint lacks fields {missing}")
-        self._dats = tuple(self._put(np.ascontiguousarray(z[k]))
+        self._dats = tuple(storage_from_reference(z[k], self.device)
                            for k in keys)
-        self._aux = tuple(self._put(np.ascontiguousarray(z[f"aux_{n}"]))
+        self._aux = tuple(storage_from_reference(z[f"aux_{n}"], self.device)
                           for n in self.aux_names)
         return self
 

@@ -44,7 +44,7 @@ from .pencil_kernel import FEATURES_ITEM, _is_f32, _TorchNS
 from .taps import as_ir
 
 __all__ = ["K6_RADII", "K6_SMEM_BUDGET", "K6_THREADS", "Plan2D",
-           "fold_linear_2d", "pencil_sweep_2d", "pencil_sweep_2d_kernel",
+           "fold_linear_forms", "pencil_sweep_2d", "pencil_sweep_2d_kernel",
            "pencil_sweep_2d_plain"]
 
 K6_THREADS = 256
@@ -137,14 +137,17 @@ class _LinearNS:
         return fn
 
 
-def fold_linear_2d(ir, fields: Sequence[str], params: dict):
-    """A 2-D stencil as ``((field index, dy, dx), coefficient)`` pairs in
-    first-seen order, coefficients of one tap summed; None when the
-    stencil is not linear in its taps."""
+def fold_linear_forms(ir, fields: Sequence[str], params: dict):
+    """A stencil of any rank as ``((field index, *offsets), coefficient)``
+    pairs in first-seen order, offsets in numpy axis order (2-D: ``(f, dy,
+    dx)``, 3-D: ``(f, dk, dj, di)``), coefficients of one tap summed; None
+    when the stencil is not linear in its taps."""
     uidx = {n: f for f, n in enumerate(fields)}
+    nd = ir.dims
 
     def read_tap(name, offs):
-        return _Linear({(uidx[name], int(offs[1]), int(offs[0])): 1.0})
+        return _Linear({(uidx[name],) + tuple(
+            int(offs[nd - 1 - a]) for a in range(nd)): 1.0})
 
     try:
         form = evaluate(ir.sdef.rhs, read_tap,
@@ -414,7 +417,7 @@ def pencil_sweep_2d(stencil, grid: np.ndarray,
     if F * lo0 > BY or F * hi0 > BY:
         raise ValueError(f"fuse {F} x y-radius ({lo0}, {hi0}) exceeds "
                          f"brick depth {BY}")
-    folded = [fold_linear_2d(r_, fieldnames, params) for r_ in irs]
+    folded = [fold_linear_forms(r_, fieldnames, params) for r_ in irs]
     plan = Plan2D(
         bdims=(BY, X), table=np.ascontiguousarray(grid, np.int32),
         y_range=(Y0, Y1), fuse=F, lo=(lo0, int(lo[1])),

@@ -1,7 +1,10 @@
 """State carried over from the JAX package to the port.
 
 Both packages keep brick storage as ``[nbricks, *bdims]`` over the same
-grid tables, so a reference state converts element for element.  The
+grid tables, and the flat-pencil backend (``backend="mxu"``) as
+``[nbricks, BK, BJ*BI]`` in the same element order, so a reference state
+of either form converts element for element (``Problem.load`` reads a
+reference checkpoint through :func:`storage_from_reference`).  The
 stencil's coefficients arrive as the reference's ``params`` dict (for
 example ``bench_params()``) and leave as the resolved float32 tap table
 that the sweep kernel takes.

@@ -48,6 +48,8 @@
 
 #include <cuda_runtime.h>
 
+#include "copy_async.cuh"
+
 #define K6_R 8                 // output rows per thread strip
 #define K6_MAX_FIELDS 8
 #define K6_MAX_OUT 8
@@ -82,25 +84,6 @@ __device__ __forceinline__ int k6_floor_div(int a, int b) {
 
 __device__ __forceinline__ int k6_clamp(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// One float from device memory to shared memory without a register
-// (cp.async, Ampere and later): a thread issues all its copies, then waits
-// once.  The host pass of a C++ compiler sees a plain copy.
-__device__ __forceinline__ void k6_copy_async(float* dst, const float* src) {
-#ifdef __CUDA_ARCH__
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(d), "l"(src) : "memory");
-#else
-    *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void k6_copy_wait() {
-#ifdef __CUDA_ARCH__
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
 }
 
 // Floats of one level buffer of h rows by w columns, padding included.
@@ -202,10 +185,10 @@ pencil_sweep_2d_kernel(K6Ptrs p, const int* __restrict__ table, K6Geom g,
                 const int c = e - s * w0;
                 int xg = xb + c;
                 if (xg < 0 || xg >= g.X) xg = ((xg % g.X) + g.X) % g.X;
-                k6_copy_async(dst + e, src + rowoff[s] + xg);
+                bt_copy_async(dst + e, src + rowoff[s] + xg);
             }
         }
-        k6_copy_wait();
+        bt_copy_wait();
     }
     __syncthreads();
 

@@ -8,15 +8,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 2. builds the port's CUDA kernels from ``bricklib_tpu_torch/csrc`` with
    nvcc, one process per source;
 3. holds each kernel against its plain PyTorch version on the card:
-   K1 (fused pencil sweep) at 32^3 and 512^3 in three configurations and
-   batched over the 16 subdomains of the strong stack, K4 (fused 4-D
+   K1 (fused pencil sweep) at 32^3 and 512^3 in six configurations (the
+   weak step's three s7pt forms; on the periodic table s7pt fuse=4 and
+   mpi125pt fuse=1 and fuse=2) and batched over the 16 subdomains of the
+   strong stack, K4 (fused 4-D
    sweep) at a tiny and the full 4-D shape in four configurations, K6
    (2-D whole-row sweep) at the full 16384^2 storage (9-point box at
    fuse=1 and fuse=4, the wave system) and on a tiny radius-2 stencil
-   through the edge clamps, all at abs-or-rel 1e-5 (FMA contraction and
-   summation order); K2 (exchange interval copies), K3 (storage copy) and
-   K5 (strong exchange stage, on every (stage, sign) of the full strong
-   plan) bit-exact;
+   through the edge clamps, K8 (flat-pencil sweep) on tiny tables and at
+   512^3 mpi125pt on periodic and ghost-inclusive ranges, and against K1
+   at fuse=1 on the same table, K7 (dense padded-array stencil) on small
+   arrays and on one 147-row slab of the 1024^3 out-of-core pass, all at
+   abs-or-rel 1e-5 (FMA contraction and summation order); K2 (exchange
+   interval copies), K3 (storage copy) and K5 (strong exchange stage, on
+   every (stage, sign) of the full strong plan) bit-exact;
 4. drives the port's paths, each validated against a dense twin at 1e-4
    and timed: the honest 512^3 weak step (SHIFT exchange + two fuse=4
    s7pt sweeps, ``drivers.weak``), the 4-D weak step (16x64x128x512,
@@ -25,13 +30,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    strong exchange + two batched fuse=4 sweeps, ``drivers.strong``), and
    ``api.Problem``: 16384^2 with bench.py's 9-point box (one fuse=4 K6
    sweep per step), the wave system of ``examples/wave_2d.py`` at
-   16384^2, and small 3-D and 4-D problems over K1 and K4;
+   16384^2, small 3-D and 4-D problems over K1 and K4, bench.py's
+   125-point leg at 512^3 in three forms (``backend="mxu"`` over K8, the
+   pencil backend over K1 at fuse=1 and fuse=2), and the out-of-core pass
+   (``ooc.ooc_sweep``, a host-resident 1024^3 array streamed through K7
+   in 7 slabs of 147 rows);
 5. checks from the launch counters, set to 0 just before each path and
    read just after, that each path ran through its kernels;
 6. times each kernel beside its plain version, the least time the card
    could take for the same work (bytes over 3.35 TB/s or f32 operations
    over 67 TFLOP/s, the larger) and, where one PyTorch call computes the
-   same function, that call.
+   same function, that call (K1 and K8: one ``nn.Conv3d`` with circular
+   padding on the dense 512^3 domain; K7: one valid ``F.conv3d`` on the
+   padded slab).
 
 Any failure exits non-zero.  Without a CUDA card, or outside a checkout of
 the repository, it exits non-zero and prints no result.  The line before
@@ -64,6 +75,13 @@ N2, BY2, ST2, FUSE2 = 16384, 32, 4, 4
 STEPS2, WAVE_STEPS = 25, 3
 # the small Problem legs over K1 and K4
 DIMS3_P, DIMS4_P = (64, 64, 512), (8, 16, 16, 64)
+# bench.py's 125-point leg (bench.py:148-170): 512^3 mpi125pt, pencil
+# bricks (8, 8, 512) on the periodic table, st_iter 8
+ST125, STEPS125 = 8, 10
+# the out-of-core pass: a host-resident 1024^3 s7pt array, the reference's
+# default slab_bytes (2 GiB): 7 slabs of 147 rows
+N_OOC, OOC_ITERS, OOC_SLABS, OOC_SLAB_BYTES = 1024, 2, 7, 2 * 2 ** 30
+OOC_SLAB, OOC_PADS = (149, 1040, 1152), (1, 8, 64)   # the first slab, padded
 # H100 SXM published peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -170,6 +188,22 @@ def make_sweep(dec, grid, kr, jr, fuse):
                         j_range=jr, fuse=fuse)
 
 
+# K1 over the fully periodic table, owned bricks only: the 3-D Problem's
+# s7pt fuse=4 sweep (the K1 record of the kernels line) and the 125-point
+# leg's two forms; (times key, name, stencil, fuse)
+PERIODIC_K1 = (("K1", "s7pt fuse=4", "s7pt", 4),
+               ("K1 125", "mpi125pt fuse=1", "mpi125pt", 1),
+               ("K1 125 f2", "mpi125pt fuse=2", "mpi125pt", 2))
+
+
+def periodic_sweep(dec, stencil: str, fuse: int):
+    from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep
+    from bricklib_tpu_torch.stencils import bench_params
+
+    return pencil_sweep(stencil, dec.periodic_grid((0, 1, 2)), dec.bdims,
+                        dec.nbricks, bench_params(), fuse=fuse)
+
+
 def phase_kernels(sizes=(32, N_BIG)) -> dict:
     """Each kernel against its plain version; returns the largest abs
     error seen per kernel."""
@@ -188,6 +222,9 @@ def phase_kernels(sizes=(32, N_BIG)) -> dict:
         for name, grid, kr, jr, fuse in sweep_cases(dec):
             check_sweep(f"{n}^3 {name}", make_sweep(dec, grid, kr, jr, fuse),
                         x, err, "K1")
+        for _key, name, stencil, fuse in PERIODIC_K1:
+            check_sweep(f"{n}^3 periodic {name}",
+                        periodic_sweep(dec, stencil, fuse), x, err, "K1")
         for table_axes in ((2,), ()):
             ex = shift_exchange(dec, (1, 1, 1), table_axes)
             a, b = x.clone(), x.clone()
@@ -464,8 +501,106 @@ def phase_kernels_2d(err: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_kernels_mxu(err: dict) -> None:
+    """K8 against its plain version on tiny tables of distinct bricks and
+    at 512^3 mpi125pt (the 125-point leg's periodic sweep and a
+    ghost-inclusive sweep on the exchange table), on the bricks it writes;
+    then against K1 at fuse=1 on the periodic table."""
+    import numpy as np
+    import torch
+
+    from bricklib_tpu_torch.codegen.mxu_kernel import (
+        pencil_sweep_mxu, pencil_sweep_mxu_plain)
+    from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep
+    from bricklib_tpu_torch.core import init_grid
+    from bricklib_tpu_torch.stencils import bench_params
+
+    params = bench_params()
+    grid, info = init_grid((5, 4, 1))
+    grid = np.asarray(grid)
+    cases = []
+    for name, bd in (("s7pt", (2, 2, 8)), ("mpi125pt", (4, 4, 8)),
+                     ("mpi25pt", (4, 8, 8)), ("mpi125pt", (8, 8, 256))):
+        for kw in ({}, {"k_range": (0, 5), "j_range": (0, 4)}):
+            cases.append((f"{name} {bd} {'ghost' if kw else 'skip'}",
+                          pencil_sweep_mxu(name, grid, bd, info.nbricks,
+                                           params, **kw), info.nbricks))
+    dec = decomposition(N_BIG)
+    GK, GJ = dec.grid.shape[:2]
+    periodic = pencil_sweep_mxu("mpi125pt", dec.periodic_grid((0, 1, 2)),
+                                dec.bdims, dec.nbricks, params)
+    cases += [("512^3 mpi125pt periodic skip", periodic, dec.nbricks),
+              ("512^3 mpi125pt ghost-inclusive",
+               pencil_sweep_mxu("mpi125pt", dec.grid, dec.bdims, dec.nbricks,
+                                params, k_range=(0, GK), j_range=(0, GJ)),
+               dec.nbricks)]
+    for name, fn, nb in cases:
+        bk, bj, bi = fn.plan.bdims
+        x = rand_cuda((nb, bk, bj * bi), 13)
+        got = fn(x)
+        want = pencil_sweep_mxu_plain(
+            x, torch.from_numpy(fn.plan.table).cuda(), fn.plan)
+        torch.cuda.synchronize()
+        w = torch.from_numpy(fn.plan.written_bricks()).cuda()
+        ok, e = close(got[w], want[w], K1_TOL)
+        err["K8"] = max(err.get("K8", 0.0), e)
+        ti, smem = fn.plan.tile()
+        print(f"[3 K8 {name} tile {ti} lanes {smem} B] max abs err {e:.3e} "
+              f"(abs-or-rel {K1_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"K8 {name} disagrees with its plain version")
+        del x, got, want
+    x = rand_cuda((dec.nbricks,) + tuple(dec.bdims), 14)
+    k1 = pencil_sweep("mpi125pt", periodic.plan.table, dec.bdims,
+                      dec.nbricks, params)
+    got = periodic(x.view(dec.nbricks, BD_K, -1)).view_as(x)
+    want = k1(x)
+    torch.cuda.synchronize()
+    w = torch.from_numpy(periodic.plan.written_bricks()).cuda()
+    ok, e = close(got[w], want[w], K1_TOL)
+    print(f"[3 K8 512^3 mpi125pt against K1 fuse=1] max abs err {e:.3e} "
+          f"(abs-or-rel {K1_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("K8 disagrees with K1 at fuse=1 on the same table")
+    del x, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_kernels_dense(err: dict) -> None:
+    """K7 against its plain version over the whole padded array: small
+    arrays (radius 2, the 27-point box, a padded row of two i tiles) and
+    one slab of the out-of-core pass."""
+    import torch
+
+    from bricklib_tpu_torch.codegen.dense_kernel import (dense_stencil,
+                                                         dense_stencil_plain)
+    from bricklib_tpu_torch.stencils import bench_params
+
+    for name, shape, pad in (("mpi13pt", (24, 32, 128), (4, 8, 48)),
+                             ("s27pt", (10, 24, 128), (1, 8, 40)),
+                             ("s7pt", (11, 24, 256), (1, 8, 64)),
+                             ("s7pt", OOC_SLAB, OOC_PADS)):
+        fn = dense_stencil(name, shape, pad, bench_params())
+        x = rand_cuda(shape, 15)
+        got = fn(x)
+        want = dense_stencil_plain([x], fn.plan)
+        torch.cuda.synchronize()
+        ok, e = close(got, want, K1_TOL)
+        err["K7"] = max(err.get("K7", 0.0), e)
+        tk, smem = fn.plan.tile_k()
+        print(f"[3 K7 {name} {shape} pad {pad} tile k {tk} {smem} B] max abs "
+              f"err {e:.3e} (abs-or-rel {K1_TOL:g}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"K7 {name} {shape} disagrees with its plain version")
+        del x, got, want
+    torch.cuda.empty_cache()
+
+
 def counters():
     from bricklib_tpu_torch.bench.roofline import copy_storage
+    from bricklib_tpu_torch.codegen.dense_kernel import dense_stencil_kernel
+    from bricklib_tpu_torch.codegen.mxu_kernel import pencil_sweep_mxu_kernel
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
     from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
         pencil_sweep_2d_kernel)
@@ -476,7 +611,8 @@ def counters():
 
     return {"K1": pencil_sweep_kernel, "K2": copy_intervals,
             "K3": copy_storage, "K4": pencil_sweep_4d_kernel,
-            "K5": stage_copy, "K6": pencil_sweep_2d_kernel}
+            "K5": stage_copy, "K6": pencil_sweep_2d_kernel,
+            "K7": dense_stencil_kernel, "K8": pencil_sweep_mxu_kernel}
 
 
 def drive(name: str, run, want_of):
@@ -546,11 +682,24 @@ def phase_paths(card: str) -> dict:
         ("Problem 4-D mpi9pt", lambda: problem_nd(DIMS4_P, "mpi9pt", 2, 2),
          lambda r: {"K4": r["sweeps"] * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
+        ("Problem 512^3 mpi125pt mxu", lambda: problem_125("mxu", 1),
+         lambda r: {"K8": r["sweeps"] * r["calls"]["step"],
+                    "K3": r["calls"]["copy"]}),
+        ("Problem 512^3 mpi125pt pencil fuse=1",
+         lambda: problem_125("pencil", 1),
+         lambda r: {"K1": r["sweeps"] * r["calls"]["step"],
+                    "K3": r["calls"]["copy"]}),
+        ("Problem 512^3 mpi125pt pencil fuse=2",
+         lambda: problem_125("pencil", 2),
+         lambda r: {"K1": r["sweeps"] * r["calls"]["step"],
+                    "K3": r["calls"]["copy"]}),
+        ("out-of-core 1024^3 s7pt", ooc_path,
+         lambda r: {"K7": r["calls"]["slab"]}),
     ]
     total = dict.fromkeys(counters(), 0)
     for name, run, want_of in paths:
         res, launches = drive(name, run, want_of)
-        report(card, name, res)
+        (report_ooc if "ooc" in res else report)(card, name, res)
         for k in total:
             total[k] += launches[k]
     return total
@@ -657,9 +806,115 @@ def problem_nd(dims, name: str, st_iter: int, fuse: int):
         np.ascontiguousarray(want, np.float32)).cuda()}, 1, 25)
 
 
+def problem_125(backend: str, fuse: int):
+    """bench.py's 125-point leg: ``Problem`` at 512^3 with mpi125pt,
+    ``st_iter`` 8, through K8 (``backend="mxu"``, which must resolve to
+    fuse 1) or K1 (the pencil backend at ``fuse``), one step validated
+    against a dense ``torch.roll`` twin on the card."""
+    from bricklib_tpu_torch.api import Problem
+
+    kw = ({} if backend == "mxu"
+          else {"schedule": {"fuse": fuse}})
+    p = Problem(dims=(N_BIG,) * 3, stencil="mpi125pt", st_iter=ST125,
+                backend=backend, **kw)
+    desc = p.describe()
+    if (desc["backend"], p.fuse, p.bdims) != (backend, fuse,
+                                              (BD_K, BD_J, N_BIG)):
+        fail(f"Problem 125pt resolved to {desc['backend']} fuse {p.fuse} "
+             f"bricks {p.bdims}")
+    g = rand_cuda((N_BIG,) * 3, 34)
+    twin = {p.gname: roll_twin(g, p.sdef, p.params, ST125)}
+    return run_problem(p, {"array": g.cpu().numpy()}, twin, 1, STEPS125)
+
+
+def roll_twin(a, sdef, params, n: int):
+    """``n`` iterations of a linear stencil on a dense periodic array on
+    the card: one ``torch.roll`` per folded tap."""
+    import torch
+
+    from bricklib_tpu_torch.codegen.taps import params_from_reference
+
+    taps = params_from_reference(params, sdef)
+    for _ in range(n):
+        acc = torch.zeros_like(a)
+        for (dk, dj, di), c in zip(taps.offsets.tolist(),
+                                   taps.coeffs.tolist()):
+            acc.add_(torch.roll(a, shifts=(-dk, -dj, -di), dims=(0, 1, 2)),
+                     alpha=c)
+        a = acc
+    return a
+
+
+def ooc_path():
+    """The out-of-core pass: ``ooc_sweep`` on a host-resident 1024^3 s7pt
+    array with the default slab budget, ``OOC_ITERS`` passes validated
+    against a ``torch.roll`` twin of the whole array on the card, then one
+    pass timed on the host clock, with the copy each way of one slab timed
+    by CUDA events."""
+    import numpy as np
+    import torch
+
+    from bricklib_tpu_torch.ooc import ooc_sweep
+    from bricklib_tpu_torch.stencils import bench_params, stencil_by_name
+
+    sd = stencil_by_name("s7pt")[0]
+    params = bench_params()
+    g = rand_cuda((N_OOC,) * 3, 35)
+    host = g.cpu().numpy()
+    want = roll_twin(g, sd, params, OOC_ITERS)
+    del g
+    stats = {}
+    got = ooc_sweep(host, sd, params, iters=OOC_ITERS,
+                    slab_bytes=OOC_SLAB_BYTES, stats=stats)
+    ok, e = close(torch.from_numpy(got).cuda(), want, 1e-4)
+    print(f"[4 out-of-core {N_OOC}^3] {OOC_ITERS} passes of {stats['slabs']} "
+          f"slabs against the dense twin: max abs err {e:.3e} (abs-or-rel "
+          f"1e-4) {'ok' if ok else 'MISMATCH'}")
+    if not ok or not bool(torch.isfinite(want).all()):
+        fail("the out-of-core pass disagrees with its dense twin")
+    if stats["slabs"] != OOC_SLABS:
+        fail(f"the out-of-core pass took {stats['slabs']} slabs, not "
+             f"{OOC_SLABS}")
+    del got, want
+    torch.cuda.empty_cache()
+    timed = {}
+    ooc_sweep(host, sd, params, slab_bytes=OOC_SLAB_BYTES, stats=timed)
+    # one slab's copy each way, pinned memory, CUDA events
+    pin = torch.empty(OOC_SLAB, pin_memory=True)
+    dev = torch.empty(OOC_SLAB, device="cuda")
+    h2d = cuda_ms(lambda: dev.copy_(pin, non_blocking=True), 3)
+    d2h = cuda_ms(lambda: pin.copy_(dev, non_blocking=True), 3)
+    nbytes = pin.numel() * 4
+    del pin, dev
+    slabs = stats["slabs"]
+    return {"ooc": True, "slabs": slabs, "wall": timed["wall_s"],
+            "pad": timed["pad_s"], "wait": timed["wait_s"],
+            "copy_out": timed["copy_out_s"],
+            "h2d_bytes": timed["h2d_bytes"], "d2h_bytes": timed["d2h_bytes"],
+            "h2d_ms": h2d, "d2h_ms": d2h, "link_bytes": nbytes,
+            "gstencil_s": float(np.prod(host.shape)) / timed["wall_s"] / 1e9,
+            "calls": {"slab": slabs * (OOC_ITERS + 1)}}
+
+
+def report_ooc(card: str, name: str, res: dict) -> None:
+    print(f"[5 {name} pass] {card}: {res['wall']:.3f} s/pass, "
+          f"{res['gstencil_s']:.3f} GStencil/s, {res['slabs']} slabs; host "
+          f"padding {res['pad']:.3f} s, blocked on the card "
+          f"{res['wait']:.3f} s, copying results out {res['copy_out']:.3f} s")
+    for way, key in (("to the device", "h2d"), ("back", "d2h")):
+        print(f"[5 {name} {key}] {card}: {res[key + '_bytes']} bytes "
+              f"{way} per pass, {res[key + '_bytes'] / res['wall'] / 1e9:.3f}"
+              f" GB/s over the pass; one slab ({res['link_bytes']} bytes, "
+              f"pinned) {res[key + '_ms']:.3f} ms = "
+              f"{res['link_bytes'] / res[key + '_ms'] / 1e6:.3f} GB/s")
+
+
 def report(card: str, name: str, res: dict) -> None:
     extra = (f", exchange share {res['exchange'] / res['step'] * 100:.1f}%"
              if "exchange" in res else "")
+    if "sweeps" in res:
+        extra += (f", {res['step'] * 1e3 / res['sweeps']:.3f} ms per sweep "
+                  f"({res['sweeps']} per step)")
     print(f"[5 {name} step] {card}: {res['step'] * 1e3:.3f} ms/step, "
           f"{res['gstencil_s']:.3f} GStencil/s{extra}")
     print(f"[5 {name} copy] {card}: K3 copy {res['copy'] * 1e3:.3f} ms, "
@@ -721,9 +976,11 @@ def phase_times(card: str) -> dict:
 
     dec = decomposition(N_BIG)
     x = random_storage(dec, seed=9, device="cuda")
-    out = {"K1": time_sweeps(card, "K1", [
+    weak = time_sweeps(card, "K1", [
         (name, make_sweep(dec, grid, kr, jr, fuse))
-        for name, grid, kr, jr, fuse in sweep_cases(dec)[1:]], x)}
+        for name, grid, kr, jr, fuse in sweep_cases(dec)[1:]], x)
+    print_times(card, "K1", "weak 512^3 step, both sweeps", weak)
+    out = {}
     ex = shift_exchange(dec, (1, 1, 1), (2,))
     ex(x)
     brick = x[0].numel() * x.element_size()
@@ -754,6 +1011,8 @@ def phase_times(card: str) -> dict:
     out.update(phase_times_4d(card))
     out.update(phase_times_strong(card))
     out.update(phase_times_2d(card))
+    out.update(phase_times_3d(card))
+    out.update(phase_times_dense(card))
     return out
 
 
@@ -893,6 +1152,170 @@ def conv_of(plan, fuse: int):
     return conv
 
 
+def conv3d_of(taps, fuse: int):
+    """``nn.Conv3d`` (circular padding, no bias) computing ``fuse``
+    iterations of a linear single-input stencil (its tap table) on a
+    periodic domain, with the composed taps as weights."""
+    import torch
+
+    one = {tuple(o): c for o, c in zip(taps.offsets.tolist(),
+                                       taps.coeffs.tolist())}
+    comp = dict(one)
+    for _ in range(fuse - 1):
+        nxt: dict = {}
+        for a, c in comp.items():
+            for b, d in one.items():
+                k = tuple(x + y for x, y in zip(a, b))
+                nxt[k] = nxt.get(k, 0.0) + c * d
+        comp = nxt
+    R = max(abs(v) for k in comp for v in k)
+    w = torch.zeros(1, 1, 2 * R + 1, 2 * R + 1, 2 * R + 1,
+                    dtype=torch.float64)
+    for (dk, dj, di), c in comp.items():
+        w[0, 0, dk + R, dj + R, di + R] = c
+    conv = torch.nn.Conv3d(1, 1, 2 * R + 1, padding=R,
+                           padding_mode="circular", bias=False,
+                           device="cuda").requires_grad_(False)
+    conv.weight.copy_(w.float())
+    return conv
+
+
+def owned_dense(x, plan):
+    """The bricks ``plan`` writes on the 512^3 periodic table, as the dense
+    owned domain ``[512, 512, 512]``."""
+    import torch
+
+    (K0, K1), (J0, J1) = plan.ranges
+    ids = torch.from_numpy(plan.table[K0:K1, J0:J1]).cuda().long()
+    b = x.view((x.shape[0],) + tuple(plan.bdims))[ids]
+    return b.permute(0, 2, 1, 3, 4).reshape((N_BIG,) * 3)
+
+
+def library_conv(name: str, fn, x, taps, fuse: int, tol: float = 1e-4):
+    """The ms of one ``nn.Conv3d`` computing what the sweep ``fn`` computes
+    on the dense owned domain, after holding it against the sweep at
+    ``tol``; None (said why) when it disagrees or fails."""
+    import torch
+
+    dense = owned_dense(x, fn.plan)[None, None]
+    got = owned_dense(fn(x), fn.plan)
+    try:
+        with torch.no_grad():
+            conv = conv3d_of(taps, fuse)
+            ok, e = close(got, conv(dense)[0, 0], tol)
+            if not ok:
+                print(f"[5 {name}] nn.Conv3d disagrees with the kernel at "
+                      f"{tol:g} (max abs {e:.3e}): no library time")
+                return None
+            return cuda_ms(lambda: conv(dense), 3)
+    except RuntimeError as e:
+        print(f"[5 {name}] nn.Conv3d failed ({e}): no library time")
+        return None
+
+
+def phase_times_3d(card: str) -> dict:
+    """One sweep over the 512^3 periodic table, the owned domain: K1 at
+    s7pt fuse=4 (the 3-D ``Problem`` and the weak step's owned-only form;
+    the K1 record) and at mpi125pt fuse=1 and fuse=2, and K8 at mpi125pt;
+    each with its plain version, its bound and one ``nn.Conv3d``
+    (circular padding, composed weights, TF32 off).  The mpi125pt rows
+    share the bound of the fewer operations, the factorized form's."""
+    import numpy as np
+    import torch
+
+    from bricklib_tpu_torch.codegen.mxu_kernel import (
+        pencil_sweep_mxu, pencil_sweep_mxu_plain)
+    from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_plain
+    from bricklib_tpu_torch.codegen.taps import params_from_reference
+    from bricklib_tpu_torch.stencils import bench_params
+
+    dec = decomposition(N_BIG)
+    tg = dec.periodic_grid((0, 1, 2))
+    params = bench_params()
+    x = rand_cuda((dec.nbricks,) + tuple(dec.bdims), 16)
+    table = torch.from_numpy(np.ascontiguousarray(tg[:, :, 0],
+                                                  np.int32)).cuda()
+    out = {}
+    mx = pencil_sweep_mxu("mpi125pt", tg, dec.bdims, dec.nbricks, params)
+    outputs = len(mx.plan.written_bricks()) * int(np.prod(dec.bdims))
+    flops125 = mx.plan.flops_per_output() * outputs
+    for key, name, stencil, fuse in PERIODIC_K1:
+        fn = periodic_sweep(dec, stencil, fuse)
+        nbytes, flops = sweep_work(fn.plan)
+        if stencil == "mpi125pt":
+            flops = fuse * flops125
+        r = row(cuda_ms(lambda: fn(x), 10),
+                cuda_ms(lambda: pencil_sweep_plain(x, table, fn.plan), 2),
+                nbytes, flops,
+                library_conv(f"K1 {name}", fn, x,
+                             params_from_reference(params, stencil), fuse))
+        print_times(card, "K1", f"512^3 periodic {name}", r)
+        out[key] = r
+    xf = x.view(dec.nbricks, BD_K, -1)
+    # on the periodic table every brick read is an owned brick it writes
+    out["K8"] = row(
+        cuda_ms(lambda: mx(xf), 10),
+        cuda_ms(lambda: pencil_sweep_mxu_plain(xf, table, mx.plan), 2),
+        2 * 4 * outputs, flops125,
+        library_conv("K8 mpi125pt", mx, xf,
+                     params_from_reference(params, "mpi125pt"), 1))
+    print_times(card, "K8", f"512^3 periodic mpi125pt, {flops125} f32 "
+                f"operations ({mx.plan.flops_per_output()} per output)",
+                out["K8"])
+    del x, xf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_times_dense(card: str) -> dict:
+    """K7 on one slab of the out-of-core pass (s7pt, 149 x 1040 x 1152
+    padded): kernel, plain version, bound (the input rows the taps reach
+    read and the padded output written once) and one valid ``F.conv3d`` on
+    the padded
+    slab, which matches the kernel on the interior i columns only (the
+    kernel's roll also defines the pad columns; checked at 1e-4 there)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bricklib_tpu_torch.codegen.dense_kernel import (dense_stencil,
+                                                         dense_stencil_plain)
+    from bricklib_tpu_torch.codegen.taps import params_from_reference
+    from bricklib_tpu_torch.stencils import bench_params
+
+    fn = dense_stencil("s7pt", OOC_SLAB, OOC_PADS, bench_params())
+    x = rand_cuda(OOC_SLAB, 17)
+    pk, pj, pi = OOC_PADS
+    SK, SJ, SI = OOC_SLAB
+    w = torch.zeros(1, 1, 3, 3, 3, device="cuda")
+    taps = params_from_reference(bench_params(), "s7pt")
+    for (dk, dj, di), c in zip(taps.offsets.tolist(), taps.coeffs.tolist()):
+        w[0, 0, dk + 1, dj + 1, di + 1] = c
+    xs = x[None, None]
+    got = fn(x)[pk:SK - pk, pj:SJ - pj, pi:SI - pi]
+    ref = F.conv3d(xs, w)[0, 0, pk - 1:SK - pk - 1, pj - 1:SJ - pj - 1,
+                          pi - 1:SI - pi - 1]
+    ok, e = close(got, ref, 1e-4)
+    lib = cuda_ms(lambda: F.conv3d(xs, w), 5) if ok else None
+    if not ok:
+        print(f"[5 K7] F.conv3d disagrees with the kernel at 1e-4 (max abs "
+              f"{e:.3e}): no library time")
+    del got, ref
+    rows = SK - 2 * pk
+    # read: the k and j rows the taps reach from the interior, whole padded
+    # i rows (the i taps wrap); written: the whole padded output
+    (klo, jlo, _), (khi, jhi, _) = fn.plan.lo, fn.plan.hi
+    nread = (rows + klo + khi) * (SJ - 2 * pj + jlo + jhi) * SI
+    r = row(cuda_ms(lambda: fn(x), 10),
+            cuda_ms(lambda: dense_stencil_plain([x], fn.plan), 3),
+            4 * (nread + x.numel()),
+            2 * len(fn.plan.taps) * rows * (SJ - 2 * pj) * SI, lib)
+    print_times(card, "K7", f"one out-of-core slab {OOC_SLAB} s7pt "
+                "(library call: valid conv3d, interior i columns)", r)
+    del x
+    torch.cuda.empty_cache()
+    return {"K7": r}
+
+
 def phase_times_2d(card: str) -> dict:
     """K6 on each 16384^2 configuration of :func:`sweeps_2d`: kernel,
     plain version, bound, and one ``nn.Conv2d`` call on the owned rows as
@@ -958,6 +1381,8 @@ def main() -> None:
     phase_kernels_4d(err)
     phase_kernels_strong(err)
     phase_kernels_2d(err)
+    phase_kernels_mxu(err)
+    phase_kernels_dense(err)
     launches = phase_paths(card)
     times = phase_times(card)
     if "jax" in sys.modules:
@@ -986,6 +1411,12 @@ def main() -> None:
         ("K6", {"name": "K6 pencil_sweep_2d", "route": "cuda",
                 "source": src + "pencil_sweep_2d.cu",
                 "replaces": "bricklib_tpu/codegen/pencil_kernel_2d.py:42"}),
+        ("K7", {"name": "K7 dense_stencil", "route": "cuda",
+                "source": src + "dense_stencil.cu",
+                "replaces": "bricklib_tpu/codegen/pallas_backend.py:128"}),
+        ("K8", {"name": "K8 pencil_sweep_mxu", "route": "cuda",
+                "source": src + "pencil_sweep_mxu.cu",
+                "replaces": "bricklib_tpu/codegen/mxu_kernel.py:93"}),
     ]
     for k, entry in kernels:
         entry.update(launches=launches[k], max_abs_err=err[k], **times[k])

@@ -6,9 +6,10 @@ The file imports no JAX, so it also runs on a machine without JAX, where
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 
-K1 (also batched over a subdomain stack), K4 and K6 are compared on the
-bricks they write at abs-or-rel 1e-5 (FMA contraction and summation
-order); K2, K3 and K5 only copy, so they must be bit-exact.
+K1 (also batched over a subdomain stack), K4, K6 and K8 are compared on
+the bricks they write, K7 on the whole padded array, at abs-or-rel 1e-5
+(FMA contraction and summation order); K2, K3 and K5 only copy, so they
+must be bit-exact.
 """
 
 import numpy as np
@@ -18,6 +19,12 @@ import torch
 from bricklib_tpu_torch import st
 from bricklib_tpu_torch.api import Problem
 from bricklib_tpu_torch.bench.roofline import copy_storage, copy_storage_plain
+from bricklib_tpu_torch.codegen.dense_kernel import (dense_stencil,
+                                                     dense_stencil_kernel,
+                                                     dense_stencil_plain)
+from bricklib_tpu_torch.codegen.mxu_kernel import (pencil_sweep_mxu,
+                                                   pencil_sweep_mxu_kernel,
+                                                   pencil_sweep_mxu_plain)
 from bricklib_tpu_torch.codegen.pencil_kernel import (pencil_sweep,
                                                       pencil_sweep_kernel,
                                                       pencil_sweep_plain)
@@ -31,11 +38,13 @@ from bricklib_tpu_torch.comm.exchange import (copy_intervals,
                                               shift_exchange)
 from bricklib_tpu_torch.comm.strong import (StrongDecomp, stage_copy,
                                             stage_copy_plain, strong_stages)
-from bricklib_tpu_torch.core import compare_arrays, random_storage
+from bricklib_tpu_torch.core import (compare_arrays, init_grid, random_array,
+                                     random_storage)
 from bricklib_tpu_torch.drivers import strong, weak
+from bricklib_tpu_torch.ooc import ooc_sweep
 from bricklib_tpu_torch.stencils import bench_params, stencil_by_name
 
-from torch_2d_stencils import BUILDERS, PARAMS
+from torch_2d_stencils import BUILDERS, PARAMS, two_inputs_3d
 
 pytestmark = pytest.mark.gpu
 
@@ -254,3 +263,81 @@ def test_problem_on_card_matches_cpu(cuda, name, kw):
     for k in (a if isinstance(a, dict) else [None]):
         x, y = (a[k], b[k]) if k else (a, b)
         assert compare_arrays(x, y, 1e-5) and np.isfinite(x).all()
+
+
+@pytest.mark.parametrize("name,bd", [
+    ("s7pt", (2, 2, 8)), ("mpi13pt", (4, 4, 8)), ("mpi125pt", (4, 4, 8)),
+    ("mpi25pt", (4, 8, 8)), ("mpi125pt", (8, 8, 256)), ("s27pt", (5, 3, 24))])
+@pytest.mark.parametrize("ranges", ["skip", "ghost"])
+def test_mxu_kernel_matches_plain(cuda, name, bd, ranges):
+    grid, info = init_grid((5, 4, 1))
+    grid = np.asarray(grid)
+    kw = {} if ranges == "skip" else dict(k_range=(0, 5), j_range=(0, 4))
+    fn = pencil_sweep_mxu(stencil_by_name(name)[0], grid, bd, info.nbricks,
+                          bench_params(), **kw)
+    x = torch.from_numpy(random_array(
+        (info.nbricks, bd[0], bd[1] * bd[2]), np.float32, 9)).to(cuda)
+    before = pencil_sweep_mxu_kernel.launches
+    got = fn(x)
+    assert pencil_sweep_mxu_kernel.launches == before + 1
+    want = pencil_sweep_mxu_plain(
+        x, torch.from_numpy(fn.plan.table).to(cuda), fn.plan)
+    w = fn.plan.written_bricks()
+    assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
+
+
+def test_mxu_kernel_matches_the_pencil_sweep(cuda):
+    dec = _dec()
+    grid = dec.periodic_grid((0, 1, 2))
+    x = random_storage(dec, seed=10, device=cuda)
+    mx = pencil_sweep_mxu("mpi125pt", grid, BD, dec.nbricks, bench_params())
+    cl = pencil_sweep("mpi125pt", grid, BD, dec.nbricks, bench_params())
+    got = mx(x.view(dec.nbricks, BD[0], -1)).view_as(x)
+    w = mx.plan.written_bricks()
+    assert compare_arrays(got.cpu().numpy()[w], cl(x).cpu().numpy()[w], 1e-5)
+
+
+@pytest.mark.parametrize("name,shape,pad", [
+    ("mpi13pt", (24, 32, 128), (4, 8, 48)), ("two", (12, 24, 128), (2, 8, 48)),
+    ("s27pt", (10, 24, 128), (1, 8, 40)), ("s7pt", (11, 24, 256), (1, 8, 64))])
+def test_dense_kernel_matches_plain(cuda, name, shape, pad):
+    sd = two_inputs_3d(st) if name == "two" else stencil_by_name(name)[0]
+    fn = dense_stencil(sd, shape, pad, bench_params())
+    arrs = [torch.from_numpy(random_array(shape, np.float32, 5 + f)).to(cuda)
+            for f in range(len(fn.plan.fields))]
+    before = dense_stencil_kernel.launches
+    got = fn(*arrs)
+    assert dense_stencil_kernel.launches == before + 1
+    want = dense_stencil_plain(arrs, fn.plan)
+    assert compare_arrays(got.cpu().numpy(), want.cpu().numpy(), 1e-5)
+
+
+def test_dense_kernel_refuses_nonlinear_stencils(cuda):
+    fn = dense_stencil("cond", (10, 24, 128), (1, 8, 40), bench_params())
+    with pytest.raises(NotImplementedError, match="nonlinear"):
+        fn(torch.zeros((10, 24, 128), device=cuda))
+
+
+def test_mxu_problem_on_card_matches_cpu(cuda):
+    kw = dict(dims=(16, 16, 32), stencil="mpi125pt", bdims=(4, 4, 32),
+              backend="mxu", st_iter=2)
+    got = Problem(device=cuda, **kw).init(seed=3).step(2).result()
+    want = Problem(device="cpu", **kw).init(seed=3).step(2).result()
+    assert compare_arrays(got, want, 1e-5) and np.isfinite(got).all()
+
+
+def test_ooc_sweep_on_card_matches_cpu(cuda):
+    g = random_array((40, 16, 256), np.float32, 7)
+    stats, cpu_stats = {}, {}
+    before = dense_stencil_kernel.launches
+    got = ooc_sweep(g, "mpi13pt", bench_params(), iters=2, slab_rows=12,
+                    stats=stats, device=cuda)
+    assert dense_stencil_kernel.launches == before + 2 * stats["slabs"]
+    want = ooc_sweep(g, "mpi13pt", bench_params(), iters=2, slab_rows=12,
+                     stats=cpu_stats, device="cpu")
+    assert stats["slabs"] == 4
+    for k in ("slabs", "h2d_bytes", "d2h_bytes"):
+        assert stats[k] == cpu_stats[k]
+    assert compare_arrays(got, want, 1e-5)
+    np.testing.assert_array_equal(g, random_array((40, 16, 256), np.float32,
+                                                  7))

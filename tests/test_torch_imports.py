@@ -2,8 +2,10 @@
 JAX package ``bricklib_tpu``, a CPU run never launches a kernel, and the
 kernel build raises instead of falling back."""
 
+import ctypes
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -33,7 +35,12 @@ from bricklib_tpu_torch.comm.exchange import copy_intervals
 from bricklib_tpu_torch.comm.strong import stage_copy
 from bricklib_tpu_torch.bench.roofline import copy_storage
 from bricklib_tpu_torch.api import Problem
+from bricklib_tpu_torch.codegen.dense_kernel import dense_stencil_kernel
+from bricklib_tpu_torch.codegen.mxu_kernel import pencil_sweep_mxu_kernel
+from bricklib_tpu_torch.ooc import ooc_sweep
 from bricklib_tpu_torch.st import ConstRef, Grid, Index, load_stencil_module
+from bricklib_tpu_torch.stencils import bench_params
+import numpy as np
 
 res = weak.run(dims=(32, 32, 32), bdim=(8, 8, 32), stencil="s7pt",
                st_iter=8, fuse=4, table_periodic=False, backend="pencil",
@@ -57,9 +64,19 @@ for dims, sd, st_iter in (((128, 16), box, 4), ((16, 16, 32), "s7pt", 4),
                           ((4, 16, 16, 16), "mpi9pt", 2)):
     p = Problem(dims=dims, stencil=sd, st_iter=st_iter, device="cpu")
     assert p.init(seed=1).step(1).result().shape == dims
+p = Problem(dims=(16, 16, 32), stencil="mpi125pt", bdims=(4, 4, 32),
+            backend="mxu", st_iter=2, device="cpu")
+assert p.init(seed=1).step(1).result().shape == (16, 16, 32)
+g = np.random.default_rng(0).random((16, 16, 256), dtype=np.float32)
+stats = {}
+assert ooc_sweep(g, "s7pt", bench_params(), iters=2, slab_rows=6,
+                 stats=stats, device="cpu").shape == g.shape
+assert stats["slabs"] == 3
 assert (pencil_sweep_kernel.launches, pencil_sweep_2d_kernel.launches,
         pencil_sweep_4d_kernel.launches, copy_intervals.launches,
-        stage_copy.launches, copy_storage.launches) == (0,) * 6
+        stage_copy.launches, copy_storage.launches,
+        pencil_sweep_mxu_kernel.launches,
+        dense_stencil_kernel.launches) == (0,) * 8
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules
@@ -125,8 +142,21 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build()
     assert _build.source_digest() == _build.source_digest()
     assert {p.name for p in _build.sources()} == {
-        "brick_copy.cu", "pencil_sweep.cu", "pencil_sweep_2d.cu",
-        "pencil_sweep_4d.cu"}
+        "brick_copy.cu", "dense_stencil.cu", "pencil_sweep.cu",
+        "pencil_sweep_2d.cu", "pencil_sweep_4d.cu", "pencil_sweep_mxu.cu"}
+    for name, argtypes in _build.SIGNATURES.items():
+        assert name.startswith("bt_") and argtypes[-1] is ctypes.c_void_p
+
+
+def test_source_digest_covers_the_headers(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert (csrc / "copy_async.cuh").exists()
+    before = _build.source_digest()
+    with open(csrc / "copy_async.cuh", "a") as f:
+        f.write("\n")
+    assert _build.source_digest() != before
 
 
 def test_tap_table_from_reference_params():

@@ -23,7 +23,7 @@ from bricklib_tpu.core import compare_arrays, init_grid, random_array
 from bricklib_tpu_torch import st as port_st
 from bricklib_tpu_torch.codegen.ir import StencilIR
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
-    K6_SMEM_BUDGET, fold_linear_2d, pencil_sweep_2d, pencil_sweep_2d_kernel,
+    K6_SMEM_BUDGET, fold_linear_forms, pencil_sweep_2d, pencil_sweep_2d_kernel,
     pencil_sweep_2d_plain)
 from bricklib_tpu_torch.convert import storage_from_reference
 
@@ -106,7 +106,7 @@ def test_fused_equals_composed_sweeps():
 def test_tap_folder_on_the_wave_system():
     sds = wave(port_st)
     fields = ("p", "v")
-    got = [dict(fold_linear_2d(StencilIR.from_def(s), fields, {}))
+    got = [dict(fold_linear_forms(StencilIR.from_def(s), fields, {}))
            for s in sds]
     nbr = {(0, 1, 0): 0.2, (0, -1, 0): 0.2, (0, 0, 1): 0.2,
            (0, 0, -1): 0.2}
@@ -120,7 +120,7 @@ def test_tap_folder_on_the_wave_system():
 
 def test_tap_folder_refuses_nonlinear_stencils():
     for sd in (nonlin(port_st), poly_system(port_st)[0]):
-        assert fold_linear_2d(StencilIR.from_def(sd),
+        assert fold_linear_forms(StencilIR.from_def(sd),
                               list(sd.inputs), {}) is None
     fn = pencil_sweep_2d(poly_system(port_st), np.arange(4), (4, 16), 4)
     assert fn.plan.taps is None

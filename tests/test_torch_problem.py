@@ -5,8 +5,9 @@ inputs.
 Each stencil is built by the same builder from each package's own eDSL.
 Results are compared on the owned region at abs-or-rel 5e-5, the f32
 tolerance of ``core/compare.py`` (float32 sums in another order).  On the
-CPU the port runs the plain versions of kernels K6 (rank 2), K1 (rank 3)
-and K4 (rank 4); the kernels are held against them on the card in
+CPU the port runs the plain versions of kernels K6 (rank 2), K1 (rank 3),
+K4 (rank 4) and K8 (``backend="mxu"``); the kernels are held against them
+on the card in
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 
@@ -19,6 +20,7 @@ from bricklib_tpu.api import Problem as RefProblem
 from bricklib_tpu.core import compare_arrays, random_array
 from bricklib_tpu_torch import st as port_st
 from bricklib_tpu_torch.api import Problem
+from bricklib_tpu_torch.codegen.mxu_kernel import pencil_sweep_mxu_kernel
 from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import pencil_sweep_2d_kernel
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import pencil_sweep_4d_kernel
@@ -182,7 +184,7 @@ def _sys3(st):
     (dict(dims=(16, 16, 32), slices=2), "multi-GPU"),
     (dict(dims=(16, 16, 32), exchange="fused"), "kernel-level exchanges"),
     (dict(dims=(16, 16), backend="jnp"), "torch oracle"),
-    (dict(dims=(16, 16, 32), backend="mxu"), "the rest"),
+    (dict(dims=(16, 16, 32), backend="mxu", mesh=(2, 1, 1)), "multi-GPU"),
     (dict(dims=(16, 16, 32), stencil=_aux3(port_st), field="in"),
      "remaining pencil_sweep features"),
     (dict(dims=(16, 16, 32), stencil=_sys3(port_st), field=("u", "v")),
@@ -220,6 +222,90 @@ def test_bad_arguments_raise_as_the_reference():
         with pytest.raises(ValueError) as port:
             Problem(stencil=box9(port_st), device="cpu", **kw)
         assert str(port.value) == str(ref.value)
+
+
+MXU = dict(dims=(16, 16, 32), stencil="mpi125pt", bdims=(4, 4, 32),
+           backend="mxu", st_iter=2)
+
+
+def test_mxu_backend_matches_the_reference():
+    """The case of tests/test_mxu_backend.py:25-32."""
+    ref, port = _pair(**MXU)
+    g = random_array((16, 16, 32), np.float32, 51)
+    before = pencil_sweep_mxu_kernel.launches
+    ref.init(array=g).step(1)
+    port.init(array=g).step(1)
+    assert pencil_sweep_mxu_kernel.launches == before
+    assert tuple(port._dats[0].shape) == (port.dec.nbricks, 4, 4 * 32)
+    _check_same(ref, port)
+    ref.step(1)
+    port.step(1)
+    _check_same(ref, port)
+
+
+def test_mxu_describe_agrees_with_the_reference():
+    ref, port = _pair(**MXU)
+    a, b = ref.describe(), port.describe()
+    for k in PLAN_KEYS + ("exchange_axes", "mesh", "eff_mesh"):
+        assert a[k] == b[k], k
+    assert b["backend"] == "mxu" and b["fuse"] == 1
+    assert set(b["exchange_axes"].values()) == {"local ghost copy"}
+    (info,) = b["kernels"]
+    assert info["kernel"].startswith("K8")
+    assert info["w_profiles"] == 6 and info["taps"] == [30]
+    assert info["smem_bytes"] > 0 and 32 % info["tile_i"] == 0
+
+
+def test_reference_mxu_checkpoint_loads_into_the_port(tmp_path):
+    ref, port = _pair(**MXU)
+    g = random_array((16, 16, 32), np.float32, 53)
+    path = str(tmp_path / "ref_mxu")
+    ref.init(array=g).step(1).save(path)
+    port.load(path)
+    assert tuple(port._dats[0].shape) == tuple(ref._dats[0].shape)
+    assert np.array_equal(port.result(), ref.result())
+    ref.step(1)
+    port.step(1)
+    _check_same(ref, port)
+    q = Problem(**dict(MXU, device="cpu"))
+    port.save(str(tmp_path / "port_mxu"))
+    q.load(str(tmp_path / "port_mxu"))
+    assert np.array_equal(q.result(), port.result())
+
+
+def test_mxu_owned_mask_has_storage_rank_3():
+    p = Problem(**dict(MXU, device="cpu"))
+    m = p.owned_mask()
+    assert m.shape == (p.dec.nbricks, 1, 1)
+    assert int(m.sum()) == 4 * 4
+    p.init(seed=2)
+    assert (p._dats[0] * m).shape == p._dats[0].shape
+
+
+def test_mxu_guards_raise_as_the_reference():
+    def two(st):
+        i, j, k = st.Index(0), st.Index(1), st.Index(2)
+        u, c, o = st.Grid("u", 3), st.Grid("c", 3), st.Grid("out", 3)
+        o(i, j, k).assign(c(i, j, k) * u(i + 1, j, k))
+        return st.load_stencil_module({"STENCIL": [o]})[0]
+
+    base = dict(dims=(8, 8, 32), backend="mxu", bdims=(4, 4, 32))
+    for stencil, kw, exc in (
+            (two, dict(field="u"), ValueError),
+            ("cond", {}, NotImplementedError),
+            ("s7pt", dict(exchange="fused"), ValueError),
+            ("s7pt", dict(schedule={"fuse": 1}), ValueError)):
+        with pytest.raises(exc) as ref:
+            RefProblem(stencil=stencil(ref_st) if callable(stencil)
+                       else stencil, **base, **kw)
+        with pytest.raises(exc) as port:
+            Problem(stencil=stencil(port_st) if callable(stencil)
+                    else stencil, device="cpu", **base, **kw)
+        assert str(port.value) == str(ref.value)
+    with pytest.raises(ValueError, match="single-input"):
+        Problem(stencil=two(port_st), field="u", device="cpu", **base)
+    with pytest.raises(NotImplementedError, match="linear"):
+        Problem(stencil="cond", device="cpu", **base)
 
 
 def test_cuda_without_a_card_raises():

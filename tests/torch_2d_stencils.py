@@ -1,6 +1,7 @@
-"""2-D stencils built with either package's eDSL (``st``), for the port's
+"""Stencils built with either package's eDSL (``st``), for the port's
 tests: the same builder gives the reference's and the port's form of one
-stencil.  No JAX here, so the card-only tests can use it too."""
+stencil.  All are 2-D but :func:`two_inputs_3d`.  No JAX here, so the
+card-only tests can use it too."""
 
 
 def _one(st, out):
@@ -82,6 +83,15 @@ def wave(st):
     op(i, j).assign(p(i, j) + v(i, j) + 0.2 * lap(p))
     ov(i, j).assign(v(i, j) + 0.2 * lap(p))
     return st.load_stencil_module({"STENCIL": [op, ov]})
+
+
+def two_inputs_3d(st):
+    """A 3-D linear stencil of two grids, asymmetric in every axis."""
+    i, j, k = st.Index(0), st.Index(1), st.Index(2)
+    u, v, o = st.Grid("u", 3), st.Grid("v", 3), st.Grid("out", 3)
+    o(i, j, k).assign(0.5 * u(i + 1, j, k) + 0.25 * v(i, j - 1, k)
+                      - 0.125 * u(i, j, k + 1) + 0.75 * v(i - 1, j + 1, k - 1))
+    return _one(st, o)
 
 
 PARAMS = {"a": 0.4, "b": 0.15}
