@@ -8,8 +8,10 @@ headers>/`` at the root of the checkout on first use, so a changed source
 or header builds anew and an unchanged one is built once.  Nothing is compiled at import time: the CPU
 tests import every module, and this machine may have no ``nvcc``.
 
-Every C entry point returns its ``cudaGetLastError()``; :func:`check`
-raises when that is not 0.  A failed build raises with nvcc's stderr.
+Every C entry point returns its ``cudaGetLastError()`` (the peer-access
+entry points, :data:`DEVICE_SIGNATURES`, their CUDA call's error);
+:func:`check` raises when that is not 0.  A failed build raises with
+nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ _I64 = ctypes.c_longlong
 SIGNATURES = {
     "bt_pencil_sweep": [_VOID, _VOID, _VOID] + [_INT] * 20
                        + [_VOID, _VOID, _INT, _INT, _VOID],
-    "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 25
+    "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 27
                           + [_VOID, _VOID, _INT, _INT, _VOID],
     "bt_pencil_sweep_2d": [_VOID, _VOID, _VOID] + [_INT] * 15
                           + [_VOID] * 4 + [_INT, _INT, _VOID],
@@ -50,6 +52,13 @@ SIGNATURES = {
     "bt_copy_intervals": [_VOID, _VOID, _INT, _I64, _VOID],
     "bt_copy_stage": [_VOID, _VOID, _VOID, _INT, _I64, _VOID],
     "bt_copy_storage": [_VOID, _VOID, _I64, _VOID],
+    "bt_remote_copy": [_VOID, _INT, _VOID, _INT, _I64, _VOID],
+    "bt_strong_remote_copy": [_VOID, _INT, _VOID, _INT, _I64, _VOID],
+}
+# the peer-access entry points (no stream): device, peer[, int* ok]
+DEVICE_SIGNATURES = {
+    "bt_can_access_peer": [_INT, _INT, _VOID],
+    "bt_enable_peer_access": [_INT, _INT],
 }
 
 _lock = threading.Lock()
@@ -122,7 +131,8 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
+            for name, argtypes in {**SIGNATURES,
+                                   **DEVICE_SIGNATURES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = _INT

@@ -6,16 +6,15 @@
   against (2 x itemsize bytes moved per element);
 - :func:`barrier` — ``torch.cuda.synchronize`` where there is a card;
 - :func:`chain` — a dependent chain ``out = fn(out)`` timed with CUDA
-  events after one warm-up call.
+  events after one warm-up call, over a tensor or a mesh state.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from .. import _build
+from .timing import Clock, devices_of
 
 
 def copy_storage_plain(x: torch.Tensor) -> torch.Tensor:
@@ -68,22 +67,18 @@ def barrier() -> None:
         torch.cuda.synchronize()
 
 
-def chain(fn, x: torch.Tensor, it: int):
+def chain(fn, x, it: int):
     """(avg seconds, last output) of ``it`` dependent calls after one
-    warm-up call: CUDA events on a CUDA tensor, ``time.perf_counter`` on
-    a CPU one."""
+    warm-up call, over a tensor or a mesh state (a list of tensors on one
+    or more cards): CUDA events on cards (``timing.Clock``: from the first
+    card's start to the last card's end), ``time.perf_counter`` on the
+    CPU."""
     out = fn(x)
-    if x.device.type == "cuda":
-        torch.cuda.synchronize(x.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(it):
-            out = fn(out)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3 / it, out
-    t0 = time.perf_counter()
+    clock = Clock(devices_of([x]))
+    if clock.cuda:
+        for d in clock.devices:
+            torch.cuda.synchronize(d)
+    t0 = clock.start()
     for _ in range(it):
         out = fn(out)
-    return (time.perf_counter() - t0) / it, out
+    return clock.seconds(t0, clock.mark()) / it, out

@@ -115,9 +115,9 @@ def pencil_sweep_4d_kernel(x: torch.Tensor, table: torch.Tensor,
         raise ValueError("kernel K4 takes at most 128 taps")
     tw, ti, smem = tile_4d(plan)
     (W0, W1), (K0, K1), (J0, J1) = plan.ranges
-    if (W1 - W0) * (K1 - K0) > 65535 or J1 - J0 > 65535:
-        raise ValueError("kernel K4 takes at most 65535 w x k bricks and "
-                         "65535 j pencils")
+    if plan.batch * (W1 - W0) * (K1 - K0) > 65535 or J1 - J0 > 65535:
+        raise ValueError("kernel K4 takes at most 65535 batch x w x k "
+                         "bricks and 65535 j pencils")
     (wlo, klo, jlo, ilo), (whi, khi, jhi, ihi) = plan.lo, plan.hi
     offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
     coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
@@ -125,7 +125,8 @@ def pencil_sweep_4d_kernel(x: torch.Tensor, table: torch.Tensor,
     err = _build.library().bt_pencil_sweep_4d(
         x.data_ptr(), out.data_ptr(), table.data_ptr(),
         GW, GK, GJ, BW, BK, BJ, BI, W0, W1, K0, K1, J0, J1, plan.fuse,
-        wlo, whi, klo, khi, jlo, jhi, ilo, ihi, tw, ti, len(coeffs),
+        wlo, whi, klo, khi, jlo, jhi, ilo, ihi, tw, ti, plan.batch,
+        plan.batch_stride, len(coeffs),
         offs.ctypes.data, coeffs.ctypes.data, smem, K4_THREADS,
         _build.stream_handle(x.device))
     _build.check(err, "pencil_sweep_4d")
@@ -149,12 +150,16 @@ def pencil_sweep_4d(stencil, grid: np.ndarray,
                     interpret: bool | None = None,
                     fuse: int = 1,
                     lookahead: int = 1,
-                    vmem_limit_bytes: int = 110 * 2 ** 20):
+                    vmem_limit_bytes: int = 110 * 2 ** 20,
+                    batch: int = 1,
+                    batch_stride: int | None = None):
     """Build a 4-D pencil sweep over the grid bricks ``w_range`` x
     ``k_range`` x ``j_range`` (half-open, grid coordinates; default: skip
     one ghost ring per axis); returns ``fn(dat_view) -> out_view`` on
     ``[nbricks, BW, BK, BJ, BI]`` storage.  ``grid`` is ``(GW, GK, GJ)``
-    or ``(GW, GK, GJ, 1)``.
+    or ``(GW, GK, GJ, 1)``.  ``batch`` > 1 with ``batch_stride`` bricks
+    per member sweeps a stack of storages in one launch (the ranks of a
+    card), as the 3-D sweep's ``batch`` does.
 
     Arguments and errors follow ``pallas_pencil_sweep_4d``
     (``bricklib_tpu/codegen/pencil_kernel_4d.py:48``).  Multi-input
@@ -210,11 +215,15 @@ def pencil_sweep_4d(stencil, grid: np.ndarray,
     if not (_is_f32(dtype) and _is_f32(compute_dtype)):
         raise not_ported("storage or compute types other than float32",
                          FEATURES_ITEM)
+    batch = int(batch)
+    if batch > 1 and batch_stride is None:
+        raise ValueError("batch > 1 needs batch_stride (bricks per member)")
     plan = SweepPlan(
         bdims=(BW, BK, BJ, BI), table=np.ascontiguousarray(grid, np.int32),
         ranges=tuple(ranges), fuse=F,
         lo=tuple(int(v) for v in lo), hi=tuple(int(v) for v in hi),
         taps=(params_from_reference(params, ir) if ir.linear is not None
               else None),
-        ir=ir, params=dict(params or {}))
+        ir=ir, params=dict(params or {}), batch=batch,
+        batch_stride=int(batch_stride) if batch > 1 else 0)
     return sweep_fn(plan, nbricks, pencil_sweep_4d_kernel)

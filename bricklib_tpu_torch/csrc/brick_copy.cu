@@ -27,38 +27,12 @@
 // What bounds them on the card.  Device-memory bytes only: each byte is
 // read once and written once and nothing is computed.
 //
-// What the design does about it.  Every thread moves 16-byte vectors
-// (uint4), neighbouring threads on neighbouring addresses, several loads
-// in flight per thread before their stores, so that the memory system sees
-// full, coalesced transactions.  Rows are 16-byte multiples (the wrapper
-// checks), so no tail handling inside a row is needed.
+// What the design does about it.  The row copy of copy_rows.cuh: 16-byte
+// vectors, coalesced, several loads in flight per thread.  Rows are
+// 16-byte multiples (the wrapper checks), so no tail handling inside a row
+// is needed.
 
-#include <cuda_runtime.h>
-
-#define BT_COPY_THREADS 256
-#define BT_COPY_UNROLL 4
-
-// One interval of n uint4s, dst[e] = src[e], spread over the x blocks of
-// the launch; the y block picks the interval.
-__device__ __forceinline__ void copy_run(uint4* dst, const uint4* src,
-                                         long long n) {
-    const long long step = (long long)gridDim.x * blockDim.x * BT_COPY_UNROLL;
-    for (long long e0 = (long long)blockIdx.x * blockDim.x * BT_COPY_UNROLL
-                        + threadIdx.x;
-         e0 < n; e0 += step) {
-        uint4 v[BT_COPY_UNROLL];
-#pragma unroll
-        for (int u = 0; u < BT_COPY_UNROLL; ++u) {
-            const long long e = e0 + (long long)u * blockDim.x;
-            if (e < n) v[u] = src[e];
-        }
-#pragma unroll
-        for (int u = 0; u < BT_COPY_UNROLL; ++u) {
-            const long long e = e0 + (long long)u * blockDim.x;
-            if (e < n) dst[e] = v[u];
-        }
-    }
-}
+#include "copy_rows.cuh"
 
 // ivs[3*b] = (dst, src, len) of interval b, in uint4 units
 __global__ void copy_intervals_kernel(uint4* base, const long long* ivs) {
@@ -72,12 +46,6 @@ __global__ void copy_stage_kernel(uint4* base, const uint4* recv,
                                   const long long* ivs) {
     const long long* iv = ivs + 4 * blockIdx.y;
     copy_run(base + iv[0], (iv[3] ? recv : base) + iv[1], iv[2]);
-}
-
-static long long copy_blocks(long long max_len) {
-    const long long per_block = (long long)BT_COPY_THREADS * BT_COPY_UNROLL;
-    const long long bx = (max_len + per_block - 1) / per_block;
-    return bx > 1024 ? 1024 : bx;
 }
 
 __global__ void copy_storage_kernel(const uint4* __restrict__ src,

@@ -16,6 +16,11 @@
 // T[W0:W1, K0:K1, J0:J1] only; every other brick of `out` is left as it
 // was.
 //
+// With a batch of B ranks stacked along the brick axis (a card's ranks of
+// a mesh), rank s reads and writes the bricks of the same table with
+// s * stride added to every brick id: one more grid dimension, folded
+// into blockIdx.z with the w and k rows.
+//
 // What bounds it on the card.  As for K1: device-memory bytes in the end
 // (a 9-point f32 sweep does 18 flops per 8 bytes), but in this first
 // design the recomputed halo and the shared-memory work per element.  A
@@ -36,12 +41,16 @@
 // output brick.  Intermediate levels never touch device memory; the taps
 // of the 9-point star are unrolled with their byte offsets computed once
 // per level.  Neighbouring blocks load overlapping level-0 tiles (mostly
-// from L2) and recompute the overlap of each level.
+// from L2) and recompute the overlap of each level.  Two blocks of 512
+// threads share an SM (two tiles fit its shared memory), so the kernel is
+// held to 64 registers a thread: at 69, one block per SM made the sweep
+// about 45% slower.
 
 #include <cuda_runtime.h>
 
 #define BT4_MAX_TAPS 128
 #define BT4_LOADS 4            // level-0 loads in flight per thread
+#define BT4_THREADS 512        // threads per block (K4_THREADS)
 
 struct Sweep4Taps {
     int n;
@@ -56,7 +65,8 @@ struct Sweep4Geom {
     int GW, GK, GJ;                     // table shape
     int BW, BK, BJ, BI;                 // brick shape
     int W0, K0, J0;                     // first output brick per axis
-    int KC;                             // output bricks in k
+    int WC, KC;                         // output bricks in w and k
+    long long stride;                   // bricks between batch members
     int F;                              // fused levels
     int wlo, whi, klo, khi, jlo, jhi, ilo, ihi;   // radius per side
     int TW, TI;                         // w slices and i lanes per block
@@ -80,23 +90,28 @@ __device__ __forceinline__ int div4(int e, float inv) {
 // tap count known at compile time (taps unrolled); NT == 0 reads it from
 // `taps`.
 template <int NT>
-__global__ void pencil_sweep_4d_kernel(const float* __restrict__ x,
-                                       float* __restrict__ out,
-                                       const int* __restrict__ table,
-                                       Sweep4Geom g, Sweep4Taps taps) {
+__global__ void __launch_bounds__(BT4_THREADS, 2)
+pencil_sweep_4d_kernel(const float* __restrict__ x, float* __restrict__ out,
+                       const int* __restrict__ table, Sweep4Geom g,
+                       Sweep4Taps taps) {
     extern __shared__ float smem[];
     const int F = g.F;
     const int nit = g.BI / g.TI;
     const int it = blockIdx.x % nit;
     const int w0 = (blockIdx.x / nit) * g.TW;   // first w slice in brick
     const int i0 = it * g.TI;
-    const int wc = blockIdx.z / g.KC;
+    const int sub = blockIdx.z / (g.WC * g.KC);
+    const int wk = blockIdx.z - sub * (g.WC * g.KC);
+    const int wc = wk / g.KC;
     const int wout = g.W0 + wc;
-    const int kout = g.K0 + (blockIdx.z - wc * g.KC);
+    const int kout = g.K0 + (wk - wc * g.KC);
     const int jout = g.J0 + blockIdx.y;
     const int rw = g.wlo + g.whi, rk = g.klo + g.khi;
     const int rj = g.jlo + g.jhi, ri = g.ilo + g.ihi;
     const long long brick = (long long)g.BW * g.BK * g.BJ * g.BI;
+    // the batch member's storage starts sub * stride bricks in
+    x += (long long)sub * g.stride * brick;
+    out += (long long)sub * g.stride * brick;
     const int tid = threadIdx.x, nthr = blockDim.x;
     const int nt = NT > 0 ? NT : taps.n;
 
@@ -259,16 +274,20 @@ extern "C" int bt_pencil_sweep_4d(const void* x, void* out, const void* table,
                                   int J0, int J1, int F,
                                   int wlo, int whi, int klo, int khi,
                                   int jlo, int jhi, int ilo, int ihi,
-                                  int TW, int TI, int ntaps,
+                                  int TW, int TI, int batch, int stride,
+                                  int ntaps,
                                   const int* tap_offsets,
                                   const float* tap_coeffs, int smem_bytes,
                                   int threads, void* stream) {
     if (ntaps < 1 || ntaps > BT4_MAX_TAPS || F < 1 || TW < 1 || TI < 1
-        || BW % TW || BI % TI || (W1 - W0) * (K1 - K0) > 65535
+        || threads < 1 || threads > BT4_THREADS
+        || BW % TW || BI % TI || batch < 1
+        || (long long)batch * (W1 - W0) * (K1 - K0) > 65535
         || J1 - J0 > 65535)
         return (int)cudaErrorInvalidValue;
-    Sweep4Geom g = {GW, GK, GJ, BW, BK, BJ, BI, W0, K0, J0, K1 - K0, F,
-                    wlo, whi, klo, khi, jlo, jhi, ilo, ihi, TW, TI};
+    Sweep4Geom g = {GW, GK, GJ, BW, BK, BJ, BI, W0, K0, J0, W1 - W0, K1 - K0,
+                    (long long)stride, F, wlo, whi, klo, khi, jlo, jhi, ilo,
+                    ihi, TW, TI};
     Sweep4Taps taps;
     taps.n = ntaps;
     for (int t = 0; t < ntaps; ++t) {
@@ -278,7 +297,7 @@ extern "C" int bt_pencil_sweep_4d(const void* x, void* out, const void* table,
         taps.di[t] = tap_offsets[4 * t + 3];
         taps.c[t] = tap_coeffs[t];
     }
-    dim3 grid((BI / TI) * (BW / TW), J1 - J0, (W1 - W0) * (K1 - K0));
+    dim3 grid((BI / TI) * (BW / TW), J1 - J0, batch * (W1 - W0) * (K1 - K0));
     cudaStream_t st = (cudaStream_t)stream;
     const float* xf = (const float*)x;
     const int* tb = (const int*)table;

@@ -1,26 +1,34 @@
-"""Strong-scaling driver on PyTorch: a fixed global domain as a stack of
-Morton-ordered subdomains, exchanged and swept in batches, validated
-against the global dense numpy twin (port of
+"""Strong-scaling driver on PyTorch: a fixed global domain cut into
+Morton-ordered subdomains over a mesh of ranks, exchanged and swept in
+batches, validated against the global dense numpy twin (port of
 ``bricklib_tpu/drivers/strong.py``; ref: strong/main.cpp:73-482,
 strong/args.cpp:16-26; CLI -d global domain, -s subdomain, -I iterations,
 -v validate).
 
-One step on one device: the strong SHIFT exchange in place (a gather of
-the face rows, then kernel K5 once per non-empty (stage, sign)), then
-``st_iter / fuse`` batched pencil sweeps over every subdomain of the stack
-(kernel K1), ghost-inclusive except the last.  Subdomains keep the full
-global i extent, so i stays periodic through the pencils and only k and j
-exchange.  Reported: GStencil/s and ms per step, the step statistics, and
-the step's ratio to a copy of the same storage (kernel K3), as
-``bench.py``'s strong leg reports it.
+One step: the strong exchange in place, then ``st_iter / fuse`` batched
+pencil sweeps over every subdomain of every rank of a card (kernel K1,
+one launch per card), ghost-inclusive except the last.  The exchange is
+``shift`` (per non-empty (stage, sign) a gather of the face rows and one
+kernel K5 launch per card) or ``remote`` (per stage one kernel K10 launch
+per card, the face rows pushed into the neighbouring rank's ghosts; on a
+mesh whose every axis has one rank it is the staged exchange, as in the
+reference).  Subdomains keep the full global i extent, so i stays
+periodic through the pencils and only k and j exchange.  Reported:
+GStencil/s and ms per step, the step statistics, and the step's ratio to
+a copy of the same storage (kernel K3), as ``bench.py``'s strong leg
+reports it.
 
 The port runs ``backend="pencil"`` (``"auto"`` picks it) with pencil
-subdomains on mesh 1,1,1; ``--exchange remote`` there is the same staged
-exchange, as in the reference.  The sweeps and the twin take
-``bench_params()``: the reference driver's ``DEFAULT_PARAMS`` lacks the
-``coeff`` group that ``s7pt`` reads, and on every stencil it can run the
-two give the same coefficients.  ``--device`` defaults to ``cuda`` and
-raises where there is none: nothing falls back to the CPU.
+subdomains on any mesh whose i axis has one rank (the reference's default
+mesh is ``2,1,1``; here it is ``1,1,1`` so that the default runs on one
+card).  A mesh's ranks may share a card (``devices=["cuda:0"] * 2``);
+without ``devices`` a mesh of several ranks takes one card each.  Cubic
+subdomains raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 2).  The
+sweeps and the twin take ``bench_params()``: the reference driver's
+``DEFAULT_PARAMS`` lacks the ``coeff`` group that ``s7pt`` reads, and on
+every stencil it can run the two give the same coefficients.  ``--device``
+defaults to ``cuda`` and raises where there is none: nothing falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -30,43 +38,46 @@ import argparse
 import numpy as np
 import torch
 
-from ..bench.roofline import chain, make_dma_copy
+from ..bench.roofline import chain, copy_storage
 from ..bench.timing import mpi_statistics, time_mpi
 from ..codegen.jnp_backend import dense_apply
 from ..codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
 from ..comm import skin3d_good
-from ..comm.exchange import MULTI_GPU_ITEM
-from ..comm.strong import StrongDecomp, strong_exchange
-from ..core import compare_arrays, not_ported, random_array, require_device
+from ..comm.exchange import on_card
+from ..comm.mesh import rank_views, run_mesh, to_state
+from ..comm.strong import (StrongDecomp, strong_exchange,
+                           strong_remote_exchange)
+from ..core import compare_arrays, not_ported, random_array
 from ..core.setup import from_bricks as from_bricks_np
 from ..core.setup import to_bricks
 from ..stencils import bench_params, stencil_by_name
-from .weak import device_label
+from .weak import mesh_label
 
 
 def _check_supported(dom, sdom, mesh_shape, backend, exchange):
     if exchange not in ("shift", "remote"):
-        raise ValueError("exchange is 'shift' (staged ppermute) or "
-                         "'remote' (one-kernel remote DMAs)")
+        raise ValueError("exchange is 'shift' (staged gather and copies) or "
+                         "'remote' (one-kernel remote copies)")
     if backend == "jnp":
         raise not_ported("--backend jnp", "the torch oracle "
                          "(dense_apply/brick_apply)")
     if backend not in ("auto", "pencil"):
         raise ValueError(f"unknown backend {backend!r}")
-    if any(m > 1 for m in mesh_shape):
-        raise not_ported(f"--mesh {tuple(mesh_shape)}", MULTI_GPU_ITEM)
-    if sdom[2] != dom[2]:
+    if sdom[2] != dom[2] or mesh_shape[2] != 1:
         raise not_ported("cubic strong subdomains (i-bricked sweeps)",
                          FEATURES_ITEM)
 
 
 def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
-               stencil="mpi7pt", st_iter=1, fuse=1, device="cuda"):
+               stencil="mpi7pt", st_iter=1, fuse=1, device="cuda",
+               mesh_shape=(1, 1, 1), exchange="shift", devices=None):
     """``(step, storage, plan, g)``: the strong step (exchange in place on
-    its argument, then the batched sweeps; returns the new stack), its
-    ``[nsub, nbricks, *bdim]`` storage, the plan, and the global domain
-    ``g`` it was cut from (numpy, seed 4)."""
-    dev = require_device(device)
+    its argument, then the batched sweeps; returns the new storage), its
+    storage, the plan, and the global domain ``g`` it was cut from (numpy,
+    seed 4).  On a mesh of one rank the storage is its ``[nsub, nbricks,
+    *bdim]`` stack; on a larger mesh it is the state, one ``[p, nsub,
+    nbricks, *bdim]`` tensor per card (``step.mesh``)."""
+    mesh = run_mesh(mesh_shape, device, devices)
     sd = stencil_by_name(stencil)[0]
     lo, hi = sd.radius()
     rad = max(max(lo), max(hi))
@@ -76,86 +87,127 @@ def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
         raise ValueError("st_iter x radius exceeds ghost depth")
     if st_iter % fuse:
         raise ValueError("st_iter must be a multiple of fuse")
-    plan = StrongDecomp(dom=dom, sdom=sdom, mesh_shape=(1, 1, 1),
+    plan = StrongDecomp(dom=dom, sdom=sdom, mesh_shape=tuple(mesh_shape),
                         bdims=bdim, ghost_depth=gz).initialize(skin3d_good)
     sdec = plan.sdec
     nloc, nb = plan.nsub_local, sdec.nbricks
     g = random_array(tuple(dom), np.float32, seed=4)
-    stacked = np.zeros((nloc, nb) + bdim, np.float32)
-    for row in range(nloc):
-        lc = plan.sub_order[row]
-        idx = [(np.arange(lc[a] * sdom[a] - gz[a],
-                          lc[a] * sdom[a] + sdom[a] + gz[a]) % dom[a])
-               for a in range(3)]
-        dat = np.zeros((nb, int(np.prod(bdim))), np.float32)
-        to_bricks(g[np.ix_(*idx)], sdec.grid, bdim, dat=dat)
-        dat[sdec.sep_pos[1]:] = 0
-        stacked[row] = dat.reshape((nb,) + bdim)
-    storage = torch.from_numpy(stacked).to(dev)
+    arrays = []
+    for r in range(mesh.size):
+        c = mesh.coords_of(r)
+        stacked = np.zeros((nloc, nb) + bdim, np.float32)
+        for row in range(nloc):
+            base = [c[a] * plan.local_block[a] + plan.sub_order[row][a]
+                    for a in range(3)]
+            idx = [(np.arange(base[a] * sdom[a] - gz[a],
+                              (base[a] + 1) * sdom[a] + gz[a]) % dom[a])
+                   for a in range(3)]
+            dat = np.zeros((nb, int(np.prod(bdim))), np.float32)
+            to_bricks(g[np.ix_(*idx)], sdec.grid, bdim, dat=dat)
+            dat[sdec.sep_pos[1]:] = 0
+            stacked[row] = dat.reshape((nb,) + bdim)
+        arrays.append(stacked)
+    state = to_state(mesh, arrays)
+    del arrays
 
     kgrid = sdec.periodic_grid((2,))
     GKs, GJs = kgrid.shape[0], kgrid.shape[1]
     fkw = dict(fuse=fuse) if fuse > 1 else {}
-    common = dict(batch=nloc, batch_stride=nb, **fkw)
-    sweep_skip = pencil_sweep(sd, kgrid, bdim, nloc * nb, bench_params(),
-                              **common)
-    sweep_ghost = None
-    if st_iter > fuse:
-        sweep_ghost = pencil_sweep(sd, kgrid, bdim, nloc * nb,
-                                   bench_params(), k_range=(0, GKs),
-                                   j_range=(0, GJs), **common)
-    exchange = strong_exchange(plan)
+    by_batch: dict = {}
+
+    def sweeps_for(p):
+        """The owned-only and ghost-inclusive sweeps over ``p`` ranks."""
+        if p not in by_batch:
+            common = dict(batch=p * nloc, batch_stride=nb, **fkw)
+            by_batch[p] = (
+                pencil_sweep(sd, kgrid, bdim, p * nloc * nb, bench_params(),
+                             **common),
+                pencil_sweep(sd, kgrid, bdim, p * nloc * nb, bench_params(),
+                             k_range=(0, GKs), j_range=(0, GJs), **common)
+                if st_iter > fuse else None)
+        return by_batch[p]
+
+    exchange_fn = (strong_remote_exchange(plan, mesh) if exchange == "remote"
+                   else strong_exchange(plan, mesh=mesh))
     nsweeps = st_iter // fuse
 
-    def step(x):
-        """Exchange (in place on ``x``) then the batched sweeps."""
-        x = exchange(x)
-        flat = x.view((nloc * nb,) + bdim)
-        for it in range(nsweeps):
-            last = it == nsweeps - 1
-            flat = (sweep_skip if (last or sweep_ghost is None)
-                    else sweep_ghost)(flat)
-        return flat.view(x.shape)
+    def step_state(state):
+        exchange_fn(state)
+        out = []
+        for t in state:
+            sweep_skip, sweep_ghost = sweeps_for(t.shape[0])
+            flat = t.view((-1,) + bdim)
+            with on_card(t.device):
+                for it in range(nsweeps):
+                    last = it == nsweeps - 1
+                    flat = (sweep_skip if (last or sweep_ghost is None)
+                            else sweep_ghost)(flat)
+            out.append(flat.view(t.shape))
+        return out
 
-    step.exchange = exchange
-    step.sweeps = (sweep_ghost, sweep_skip)
+    if mesh.size > 1:
+        step, storage = step_state, state
+    else:
+        def step(x):
+            """Exchange (in place on ``x``) then the batched sweeps."""
+            return step_state([x.unsqueeze(0)])[0][0]
+
+        storage = state[0][0]
+    step.exchange = exchange_fn
+    step.sweeps = sweeps_for(len(mesh.ranks_on(0)))[::-1]
+    step.mesh = mesh
     return step, storage, plan, g
 
 
-def validate_step(step, storage, plan, g, stencil, st_iter) -> bool:
+def validate_step(step, storage, plan, g, stencil, st_iter,
+                  mesh=None) -> bool:
     """One step against the global dense numpy twin at 1e-4 on every
-    subdomain (ref: drivers/strong.py:152-176)."""
+    subdomain of every rank (ref: drivers/strong.py:152-176).  ``mesh``:
+    the mesh of a state; without it ``storage`` is one rank's stack."""
     sd = stencil_by_name(stencil)[0]
     gname = next(iter(sd.inputs))
     lo, hi = sd.radius()
-    out = step(storage.clone()).cpu().numpy()
+    if mesh is None:
+        outs, coords = [step(storage.clone())], [(0, 0, 0)]
+    else:
+        outs = rank_views(mesh, step([t.clone() for t in storage]))
+        coords = [mesh.coords_of(r) for r in range(mesh.size)]
     b = g
     for _ in range(st_iter):
         gp = np.pad(b, list(zip(lo, hi)), mode="wrap")
         b = dense_apply(sd, {gname: gp}, bench_params(), xp=np)
     sdom, nb = plan.sdom, plan.sdec.nbricks
-    for row in range(plan.nsub_local):
-        lc = plan.sub_order[row]
-        sl = tuple(slice(lc[a] * sdom[a], (lc[a] + 1) * sdom[a])
-                   for a in range(3))
-        got = from_bricks_np(out[row].reshape(nb, -1),
-                             plan.sdec.interior_grid(), plan.bdims)
-        if not compare_arrays(got, b[sl], 1e-4):
-            return False
+    for out, c in zip(outs, coords):
+        out = out.cpu().numpy()
+        for row in range(plan.nsub_local):
+            base = [c[a] * plan.local_block[a] + plan.sub_order[row][a]
+                    for a in range(3)]
+            sl = tuple(slice(base[a] * sdom[a], (base[a] + 1) * sdom[a])
+                       for a in range(3))
+            got = from_bricks_np(out[row].reshape(nb, -1),
+                                 plan.sdec.interior_grid(), plan.bdims)
+            if not compare_arrays(got, b[sl], 1e-4):
+                return False
     return True
 
 
 def run(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
         stencil="mpi7pt", st_iter=1, mesh_shape=(1, 1, 1), iters=25,
         validate=False, backend="auto", fuse=1, exchange="shift",
-        device="cuda"):
-    """Build, validate and time the strong step.  Returns a dict of
-    seconds (``step``, ``copy``), the rates, and the number of calls made
-    of each timed function (``calls``)."""
+        device="cuda", devices=None):
+    """Build, validate and time the strong step on ``mesh_shape`` ranks
+    (``devices``: one per rank, repeats allowed).  Returns a dict of
+    seconds (``step``, ``copy``), the rates, the number of calls made of
+    each timed function (``calls``; ``copy`` counts one per card) and the
+    exchange's kernel launches per step (``exchange_launches``)."""
     dom, sdom = tuple(int(d) for d in dom), tuple(int(d) for d in sdom)
-    _check_supported(dom, sdom, tuple(mesh_shape), backend, exchange)
+    mesh_shape = tuple(int(m) for m in mesh_shape)
+    _check_supported(dom, sdom, mesh_shape, backend, exchange)
     step, storage, plan, g = build_step(dom, sdom, bdim, stencil, st_iter,
-                                        fuse, device)
+                                        fuse, device, mesh_shape, exchange,
+                                        devices)
+    mesh = step.mesh
+    state = storage if mesh.size > 1 else [storage.unsqueeze(0)]
     calls = {"step": 0, "copy": 0}
 
     def counted_step(x):
@@ -164,29 +216,38 @@ def run(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
 
     if validate:
         if not validate_step(counted_step, storage, plan, g, stencil,
-                             st_iter):
+                             st_iter, mesh if mesh.size > 1 else None):
             raise RuntimeError("validation mismatch vs global dense twin")
         print("validated against global dense twin: OK")
 
-    avg, samples = time_mpi(counted_step, storage.clone(), iters=iters)
-    nloc, nb = plan.nsub_local, plan.sdec.nbricks
-    flat = storage.view((nloc * nb,) + tuple(plan.bdims))
-    copy_fn = make_dma_copy(nloc * nb, plan.bdims)
+    avg, samples = time_mpi(counted_step, [t.clone() for t in state]
+                            if mesh.size > 1 else storage.clone(),
+                            iters=iters)
 
-    def counted_copy(v):
-        calls["copy"] += 1
-        return copy_fn(v)
+    def counted_copy(x):
+        calls["copy"] += len(x)
+        out = []
+        for t in x:
+            with on_card(t.device):
+                out.append(copy_storage(t))
+        return out
 
-    t_copy, _ = chain(counted_copy, flat, iters)
+    t_copy, _ = chain(counted_copy, state, iters)
+    nloc = plan.nsub_local
     elems = int(np.prod(dom)) * st_iter
     gst = elems / avg / 1e9
-    store_bytes = storage.numel() * storage.element_size()
+    store_bytes = sum(t.numel() * t.element_size() for t in state)
     copy_bw = 2 * store_bytes / t_copy
     vs_copy = st_iter * t_copy / avg
-    print(f"device {device_label(storage.device)}")
-    print(f"dom {dom} sdom {sdom} mesh {tuple(mesh_shape)} "
-          f"subs/device {nloc} stencil {stencil} backend pencil "
-          f"ST_ITER {st_iter} fuse {fuse}")
+    ex = step.exchange
+    launches = (sum(1 for per_card in ex.plan for rows in per_card if rows)
+                if hasattr(ex, "plan")
+                else len(ex.stages) * len(mesh.cards))
+    label = mesh_label(mesh)
+    print(f"device {label}")
+    print(f"dom {dom} sdom {sdom} mesh {mesh_shape} "
+          f"subs/rank {nloc} stencil {stencil} backend pencil "
+          f"ST_ITER {st_iter} fuse {fuse} exchange {exchange}")
     print(f"perf {gst:8.3f} GStencil/s ({avg * 1e3:.3f} ms/step)")
     print(f"copy roofline {copy_bw / 1e9:.1f} GB/s ({t_copy * 1e3:.3f} "
           f"ms/copy of {store_bytes / 1e6:.1f} MB); step at {vs_copy:.3f} "
@@ -196,8 +257,8 @@ def run(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
           f"max {st['max']*1e3:7.3f} sigma {st['sigma']*1e3:7.3f} ms")
     return {"step": avg, "copy": t_copy, "copy_gbs": copy_bw / 1e9,
             "gstencil_s": gst, "vs_copy_sol": vs_copy, "calls": dict(calls),
-            "exchange_steps": len(step.exchange.stages),
-            "device": device_label(storage.device)}
+            "exchange_steps": len(ex.stages), "exchange_launches": launches,
+            "device": label, "ranks": mesh.size, "cards": len(mesh.cards)}
 
 
 def main(argv=None):
@@ -208,7 +269,11 @@ def main(argv=None):
     p.add_argument("-b", "--bdim", default="4,4,8")
     p.add_argument("--stencil", default="mpi7pt")
     p.add_argument("-I", "--st-iter", type=int, default=1)
-    p.add_argument("--mesh", default="1,1,1")
+    p.add_argument("--mesh", default="1,1,1",
+                   help="ranks per axis (i must have one)")
+    p.add_argument("--devices", default=None,
+                   help="one device per rank, comma-separated, repeats "
+                        "allowed; default: one card per rank")
     p.add_argument("--iters", type=int, default=25)
     p.add_argument("-v", "--validate", action="store_true")
     p.add_argument("--backend", default="auto",
@@ -218,7 +283,8 @@ def main(argv=None):
                    help="iterations fused per pass over device memory")
     p.add_argument("--exchange", default="shift",
                    choices=["shift", "remote"],
-                   help="on mesh 1,1,1 both are the staged exchange")
+                   help="staged gather and K5, or remote copies (K10); on "
+                        "mesh 1,1,1 both are the staged exchange")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the step runs; cuda raises when there is "
                         "no card")
@@ -228,7 +294,8 @@ def main(argv=None):
         tuple(int(x) for x in a.bdim.split(",")),
         a.stencil, a.st_iter,
         tuple(int(x) for x in a.mesh.split(",")),
-        a.iters, a.validate, a.backend, a.fuse, a.exchange, a.device)
+        a.iters, a.validate, a.backend, a.fuse, a.exchange, a.device,
+        a.devices and a.devices.split(","))
 
 
 if __name__ == "__main__":

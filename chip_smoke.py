@@ -20,14 +20,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    at fuse=1 on the same table, K7 (dense padded-array stencil) on small
    arrays and on one 147-row slab of the 1024^3 out-of-core pass, all at
    abs-or-rel 1e-5 (FMA contraction and summation order); K2 (exchange
-   interval copies), K3 (storage copy) and K5 (strong exchange stage, on
-   every (stage, sign) of the full strong plan) bit-exact;
+   interval copies), K3 (storage copy), K5 (strong exchange stage, on
+   every (stage, sign) of the full strong plan), K9 and K10 (the
+   remote-copy exchanges, on every stage of the full weak mesh plan with
+   four ranks and the strong mesh plan with two, on cuda:0, and across
+   two cards where the machine has them) bit-exact;
 4. drives the port's paths, each validated against a dense twin at 1e-4
    and timed: the honest 512^3 weak step (SHIFT exchange + two fuse=4
    s7pt sweeps, ``drivers.weak``), the 4-D weak step (16x64x128x512,
    mpi9pt, SHIFT exchange + two fuse=2 sweeps, ``drivers.weak``), the
    one-card strong step (512^3 as 16 subdomains of 128x128x512, s7pt,
-   strong exchange + two batched fuse=4 sweeps, ``drivers.strong``), and
+   strong exchange + two batched fuse=4 sweeps, ``drivers.strong``), the
+   weak step at 512^3 per rank on mesh (2, 2, 1), four ranks on cuda:0,
+   in its three exchange forms (``shift``, ``put``, ``shift-remote`` over
+   K9; validated against a ``torch.roll`` twin of the 1024x1024x512
+   global domain on the card), the strong step on mesh (2, 1, 1), two
+   ranks on cuda:0, in ``shift`` (K5) and ``remote`` (K10) form, and
    ``api.Problem``: 16384^2 with bench.py's 9-point box (one fuse=4 K6
    sweep per step), the wave system of ``examples/wave_2d.py`` at
    16384^2, small 3-D and 4-D problems over K1 and K4, bench.py's
@@ -42,7 +50,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    over 67 TFLOP/s, the larger) and, where one PyTorch call computes the
    same function, that call (K1 and K8: one ``nn.Conv3d`` with circular
    padding on the dense 512^3 domain; K7: one valid ``F.conv3d`` on the
-   padded slab).
+   padded slab; K2, K5, K9, K10: indexed assignments of the same rows).
 
 Any failure exits non-zero.  Without a CUDA card, or outside a checkout of
 the repository, it exits non-zero and prints no result.  The line before
@@ -82,6 +90,10 @@ ST125, STEPS125 = 8, 10
 # default slab_bytes (2 GiB): 7 slabs of 147 rows
 N_OOC, OOC_ITERS, OOC_SLABS, OOC_SLAB_BYTES = 1024, 2, 7, 2 * 2 ** 30
 OOC_SLAB, OOC_PADS = (149, 1040, 1152), (1, 8, 64)   # the first slab, padded
+# the mesh paths: the weak step at 512^3 per rank on mesh (2, 2, 1), four
+# ranks on one card (the k and j stages cross ranks), and the strong step
+# at 512^3 on mesh (2, 1, 1), two ranks of 8 subdomains on one card
+MESH_WEAK, MESH_STRONG = (2, 2, 1), (2, 1, 1)
 # H100 SXM published peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -298,11 +310,14 @@ def check_sweep(name, fn, x, err, key):
 
 
 def phase_kernels_4d(err: dict) -> None:
-    """K4 against its plain version at the tiny and the full 4-D shape."""
+    """K4 against its plain version at the tiny and the full 4-D shape,
+    and batched over three ranks at the tiny shape."""
     import torch
 
-    from bricklib_tpu_torch.codegen.pencil_kernel_4d import tile_4d
+    from bricklib_tpu_torch.codegen.pencil_kernel_4d import (pencil_sweep_4d,
+                                                             tile_4d)
     from bricklib_tpu_torch.core import random_storage
+    from bricklib_tpu_torch.stencils import bench_params
 
     for dims, bd in ((DIMS4_TINY, BD4_TINY), (DIMS4, BD4)):
         dec = decomposition_4d(dims, bd)
@@ -314,12 +329,24 @@ def phase_kernels_4d(err: dict) -> None:
                         err, "K4")
         del x
         torch.cuda.empty_cache()
+    # batched over the ranks of a card, as a 4-D mesh step sweeps them
+    dec = decomposition_4d(DIMS4_TINY, BD4_TINY)
+    x = rand_cuda((3 * dec.nbricks,) + tuple(dec.bdims), 7)
+    G = dec.grid.shape[:3]
+    for ranges in ({}, dict(w_range=(0, G[0]), k_range=(0, G[1]),
+                            j_range=(0, G[2]))):
+        fn = pencil_sweep_4d("mpi9pt", dec.grid, dec.bdims, 3 * dec.nbricks,
+                             bench_params(), fuse=FUSE4, batch=3,
+                             batch_stride=dec.nbricks, **ranges)
+        check_sweep(f"{DIMS4_TINY} batched x3 fuse=2 "
+                    f"{'ghost-inclusive' if ranges else 'skip'}", fn, x,
+                    err, "K4")
 
 
-def strong_plan():
+def strong_plan(mesh_shape=(1, 1, 1)):
     from bricklib_tpu_torch.comm import StrongDecomp, skinlist_by_name
 
-    return StrongDecomp(dom=(N_BIG,) * 3, sdom=SDOM, mesh_shape=(1, 1, 1),
+    return StrongDecomp(dom=(N_BIG,) * 3, sdom=SDOM, mesh_shape=mesh_shape,
                         bdims=(BD_K, BD_J, N_BIG),
                         ghost_depth=(BD_K, BD_J, 0)).initialize(
         skinlist_by_name("good", 3))
@@ -379,6 +406,92 @@ def phase_kernels_strong(err: dict) -> None:
     if torch.equal(a, flat):
         fail("the strong exchange moved nothing")
     err["K5"] = 0.0
+
+
+def mesh_exchanges(devices_weak, devices_strong):
+    """The remote-copy exchanges of the two mesh paths: K9's over the
+    weak mesh and K10's over the strong mesh, each with random state on
+    its cards; ``[(key, exchange fn, state, rows per rank)]``."""
+    from bricklib_tpu_torch.comm.exchange import shift_remote_exchange
+    from bricklib_tpu_torch.comm.mesh import make_domain_mesh
+    from bricklib_tpu_torch.comm.strong import strong_remote_exchange
+
+    dec = decomposition(N_BIG)
+    wmesh = make_domain_mesh(MESH_WEAK, devices=devices_weak)
+    plan = strong_plan(MESH_STRONG)
+    smesh = make_domain_mesh(MESH_STRONG, devices=devices_strong)
+    nsub, nb = plan.nsub_local, plan.sdec.nbricks
+
+    def state(mesh, rank_shape, seed):
+        return [rand_cuda((len(mesh.ranks_on(c)),) + rank_shape, seed + c)
+                .to(dev) for c, dev in enumerate(mesh.cards)]
+
+    return [("K9", shift_remote_exchange(dec, wmesh, table_axes=(2,)),
+             state(wmesh, (dec.nbricks,) + tuple(dec.bdims), 50),
+             dec.nbricks),
+            ("K10", strong_remote_exchange(plan, smesh),
+             state(smesh, (nsub, nb) + tuple(plan.bdims), 60), nsub * nb)]
+
+
+def check_remote(key, ex, state, where: str) -> None:
+    """Every stage and card of a K9 or K10 plan against the plain version,
+    bit-exact after each stage."""
+    import torch
+
+    from bricklib_tpu_torch.comm.exchange import (copy_rows_plain, on_card,
+                                                  remote_copy)
+    from bricklib_tpu_torch.comm.strong import strong_remote_copy
+
+    launch = remote_copy if key == "K9" else strong_remote_copy
+    a = [t.clone() for t in state]
+    b = [t.clone() for t in state]
+    fa = [t.view((-1,) + tuple(t.shape[-3:])) for t in a]
+    fb = [t.view((-1,) + tuple(t.shape[-3:])) for t in b]
+    for s_, per_card in enumerate(ex.plan):
+        for c, rows in enumerate(per_card):
+            if rows:
+                with on_card(fa[c].device):
+                    launch(fa, c, rows)
+                copy_rows_plain(fb, rows)
+        for t in a:
+            torch.cuda.synchronize(t.device)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        nrows = sum(r[-1] for rows in per_card for r in rows)
+        remote = sum(r[-1] for rows in per_card for r in rows
+                     if r[0] != r[2])
+        print(f"[3 {key} {where} stage {s_}] {sum(map(len, per_card))} "
+              f"rows in {sum(1 for r in per_card if r)} launch(es), "
+              f"{nrows} brick rows ({remote} into another card), "
+              f"{'bit-exact' if same else 'MISMATCH'}")
+        if not same:
+            fail(f"{key} {where} stage {s_} disagrees with its plain version")
+    if all(torch.equal(x, y) for x, y in zip(a, state)):
+        fail(f"{key} {where}: the exchange moved nothing")
+
+
+def phase_kernels_mesh(err: dict) -> None:
+    """K9 and K10 bit-exact against their plain versions on every stage of
+    the full weak plan (four ranks on cuda:0) and strong plan (two ranks
+    on cuda:0); where the machine has two cards, the same plans across
+    two cards (ranks 0, 1 | 2, 3 and 0 | 1)."""
+    import torch
+
+    for key, ex, state, _rows in mesh_exchanges(["cuda:0"] * 4,
+                                                ["cuda:0"] * 2):
+        check_remote(key, ex, state, "one card")
+        err[key] = 0.0
+        del state
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() < 2:
+        print("[3 K9 K10 two cards] skipped: this machine has "
+              f"{torch.cuda.device_count()} card; the NVLink leg is "
+              "unverified")
+        return
+    for key, ex, state, _rows in mesh_exchanges(
+            ["cuda:0", "cuda:0", "cuda:1", "cuda:1"], ["cuda:0", "cuda:1"]):
+        check_remote(key, ex, state, "two cards")
+        del state
+    torch.cuda.empty_cache()
 
 
 def stencil_2d(name: str):
@@ -606,13 +719,14 @@ def counters():
         pencil_sweep_2d_kernel)
     from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
         pencil_sweep_4d_kernel)
-    from bricklib_tpu_torch.comm.exchange import copy_intervals
-    from bricklib_tpu_torch.comm.strong import stage_copy
+    from bricklib_tpu_torch.comm.exchange import copy_intervals, remote_copy
+    from bricklib_tpu_torch.comm.strong import stage_copy, strong_remote_copy
 
     return {"K1": pencil_sweep_kernel, "K2": copy_intervals,
             "K3": copy_storage, "K4": pencil_sweep_4d_kernel,
             "K5": stage_copy, "K6": pencil_sweep_2d_kernel,
-            "K7": dense_stencil_kernel, "K8": pencil_sweep_mxu_kernel}
+            "K7": dense_stencil_kernel, "K8": pencil_sweep_mxu_kernel,
+            "K9": remote_copy, "K10": strong_remote_copy}
 
 
 def drive(name: str, run, want_of):
@@ -623,11 +737,13 @@ def drive(name: str, run, want_of):
     wrappers = counters()
     for w in wrappers.values():
         w.launches = 0
+    t0 = time.perf_counter()
     res = run()
     launches = {k: w.launches for k, w in wrappers.items()}
     path = want_of(res)
     want = {k: path.get(k, 0) for k in wrappers}
-    print(f"[4 {name}] validated; calls {res['calls']}; launches "
+    print(f"[4 {name}] validated in {time.perf_counter() - t0:.1f} s (host "
+          f"clock, build to timing); calls {res['calls']}; launches "
           f"{launches}; expected {want}")
     for k in wrappers:
         if launches[k] != want[k] or path.get(k) == 0:
@@ -637,8 +753,10 @@ def drive(name: str, run, want_of):
 
 
 def phase_paths(card: str) -> dict:
-    """The port's three paths at full size, each through its driver;
-    returns the launches per kernel summed over the three runs."""
+    """The port's paths at full size, each through its driver or
+    ``Problem``; returns the launches per kernel summed over the runs.  On
+    the weak mesh both staged axes cross ranks, so its ``shift`` and
+    ``put`` forms move ghosts by ``Tensor.copy_`` alone (K2 none)."""
     from bricklib_tpu_torch.comm.exchange import shift_stages
     from bricklib_tpu_torch.drivers import strong, weak
 
@@ -670,6 +788,30 @@ def phase_paths(card: str) -> dict:
          lambda r: {"K1": (ST_ITER // FUSE) * r["calls"]["step"],
                     "K5": r["exchange_steps"] * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
+    ] + [
+        (f"weak 512^3 per rank, mesh {MESH_WEAK}, 4 ranks on cuda:0, "
+         f"{ex}", lambda ex=ex: weak_mesh_path(ex),
+         lambda r, ex=ex: {
+             "K1": (ST_ITER // FUSE) * (r["calls"]["step"]
+                                        + r["calls"]["step_noex"]),
+             **({"K9": len(weak_mesh_stages()) * r["calls"]["step"]}
+                if ex == "shift-remote" else {}),
+             "K3": r["calls"]["copy"]})
+        for ex in ("shift", "put", "shift-remote")
+    ] + [
+        (f"strong 512^3, mesh {MESH_STRONG}, 2 ranks on cuda:0, {ex}",
+         lambda ex=ex: strong.run(
+             dom=(N_BIG,) * 3, sdom=SDOM, bdim=(BD_K, BD_J, N_BIG),
+             stencil="s7pt", st_iter=ST_ITER, fuse=FUSE, validate=True,
+             mesh_shape=MESH_STRONG, exchange=ex,
+             devices=["cuda:0"] * 2),
+         lambda r, ex=ex: {
+             "K1": (ST_ITER // FUSE) * r["calls"]["step"],
+             "K5" if ex == "shift" else "K10":
+                 r["exchange_launches"] * r["calls"]["step"],
+             "K3": r["calls"]["copy"]})
+        for ex in ("shift", "remote")
+    ] + [
         ("Problem 2-D 16384^2 box9", problem_box9,
          lambda r: {"K6": r["sweeps"] * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
@@ -703,6 +845,61 @@ def phase_paths(card: str) -> dict:
         for k in total:
             total[k] += launches[k]
     return total
+
+
+def weak_mesh_stages():
+    """The SHIFT stages of the weak mesh step (k and j; i goes through the
+    table): K9 launches once per stage and card."""
+    from bricklib_tpu_torch.comm.exchange import shift_stages
+
+    return shift_stages(decomposition(N_BIG), MESH_WEAK, (2,))
+
+
+def weak_mesh_path(exchange: str) -> dict:
+    """The weak step at 512^3 per rank on mesh (2, 2, 1), four ranks on
+    cuda:0, through ``drivers.weak.run``, validated by
+    :func:`weak_roll_validate`."""
+    from bricklib_tpu_torch.drivers import weak
+
+    return weak.run(dims=(N_BIG,) * 3, bdim=(BD_K, BD_J, N_BIG),
+                    stencil="s7pt", st_iter=ST_ITER, fuse=FUSE,
+                    table_periodic=False, backend="pencil",
+                    mesh_shape=MESH_WEAK, exchange=exchange,
+                    devices=["cuda:0"] * 4, validate=weak_roll_validate)
+
+
+def weak_roll_validate(s) -> bool:
+    """One mesh step against a ``torch.roll`` twin of the global periodic
+    domain (1024 x 1024 x 512) on the card, each rank's owned 512^3 block
+    at abs-or-rel 1e-4: the ghost depth (8) covers ST_ITER (8) radius-1
+    iterations, so the whole owned block is exact."""
+    import numpy as np
+    import torch
+
+    from bricklib_tpu_torch.comm.mesh import rank_views
+    from bricklib_tpu_torch.drivers import weak
+    from bricklib_tpu_torch.stencils import bench_params, stencil_by_name
+
+    out = rank_views(s.mesh, s.step(weak.clone_state(s.state)))
+    g = torch.from_numpy(s.g).cuda()
+    twin = roll_twin(g, stencil_by_name("s7pt")[0], bench_params(), ST_ITER)
+    del g
+    ids = torch.from_numpy(np.ascontiguousarray(
+        s.dec.interior_grid()[..., 0], np.int64)).cuda()
+    ok = bool(torch.isfinite(twin).all())
+    for r, v in enumerate(out):
+        c = s.mesh.coords_of(r)
+        got = v[ids].permute(0, 2, 1, 3, 4).reshape((N_BIG,) * 3)
+        want = twin[c[0] * N_BIG:(c[0] + 1) * N_BIG,
+                    c[1] * N_BIG:(c[1] + 1) * N_BIG]
+        good, e = close(got, want, 1e-4)
+        print(f"[4 weak mesh rank {r} {c}] against the global roll twin: "
+              f"max abs err {e:.3e} (abs-or-rel 1e-4) "
+              f"{'ok' if good else 'MISMATCH'}")
+        ok &= good
+    del out, twin
+    torch.cuda.empty_cache()
+    return ok
 
 
 def run_problem(p, init: dict, twin: dict, n_valid: int, n_timed: int):
@@ -1013,6 +1210,7 @@ def phase_times(card: str) -> dict:
     out.update(phase_times_2d(card))
     out.update(phase_times_3d(card))
     out.update(phase_times_dense(card))
+    out.update(phase_times_mesh(card))
     return out
 
 
@@ -1117,6 +1315,51 @@ def phase_times_strong(card: str) -> dict:
                 out["K5"])
     del flat, steps, lib
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_times_mesh(card: str) -> dict:
+    """K9 summed over the launches of one weak mesh exchange (two stages,
+    four ranks on cuda:0) and K10 over one strong mesh exchange (two
+    stages, two ranks): kernel, plain version (one ``Tensor.copy_`` per
+    row), bound (every row read once and written once, device memory on
+    one card) and, as the library call, one indexed assignment
+    ``flat[dst] = flat[src]`` per stage (all ranks of the card are one
+    tensor)."""
+    import torch
+
+    from bricklib_tpu_torch.comm.exchange import copy_rows_plain
+
+    out = {}
+    for key, ex, state, _rows in mesh_exchanges(["cuda:0"] * 4,
+                                                ["cuda:0"] * 2):
+        flats = [t.view((-1,) + tuple(t.shape[-3:])) for t in state]
+        flat = flats[0]
+        lib, nrows = [], 0
+        for per_card in ex.plan:
+            rows = per_card[0]
+            d = torch.tensor([dr + i for _dc, dr, _sc, _sr, n in rows
+                              for i in range(n)]).cuda()
+            s_ = torch.tensor([sr + i for _dc, _dr, _sc, sr, n in rows
+                               for i in range(n)]).cuda()
+            lib.append((d, s_))
+            nrows += len(d)
+
+        def plain():
+            for per_card in ex.plan:
+                copy_rows_plain(flats, per_card[0])
+
+        def library():
+            for d, s_ in lib:
+                flat[d] = flat[s_]
+
+        brick = flat[0].numel() * flat.element_size()
+        out[key] = row(cuda_ms(lambda: ex(state), 50), cuda_ms(plain, 10),
+                       2 * nrows * brick, 0, cuda_ms(library, 50))
+        print_times(card, key, f"per exchange, {len(ex.plan)} launches, "
+                    f"{nrows} brick rows of {brick} B", out[key])
+        del state, flats, flat, lib
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1380,6 +1623,7 @@ def main() -> None:
     err = phase_kernels()
     phase_kernels_4d(err)
     phase_kernels_strong(err)
+    phase_kernels_mesh(err)
     phase_kernels_2d(err)
     phase_kernels_mxu(err)
     phase_kernels_dense(err)
@@ -1417,6 +1661,12 @@ def main() -> None:
         ("K8", {"name": "K8 pencil_sweep_mxu", "route": "cuda",
                 "source": src + "pencil_sweep_mxu.cu",
                 "replaces": "bricklib_tpu/codegen/mxu_kernel.py:93"}),
+        ("K9", {"name": "K9 remote_copy", "route": "cuda",
+                "source": src + "remote_copy.cu",
+                "replaces": "bricklib_tpu/comm/exchange.py:260"}),
+        ("K10", {"name": "K10 strong_remote_copy", "route": "cuda",
+                 "source": src + "remote_copy.cu",
+                 "replaces": "bricklib_tpu/comm/strong.py:195"}),
     ]
     for k, entry in kernels:
         entry.update(launches=launches[k], max_abs_err=err[k], **times[k])

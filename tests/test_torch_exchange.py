@@ -92,9 +92,16 @@ def test_plan_reused_across_calls():
 
 
 def test_multi_device_mesh_raises():
+    """The stage plan of a mesh marks its distributed axes; the exchange
+    of a mesh of several ranks takes a Mesh and its state, and one bare
+    tensor with a mesh shape of several ranks raises."""
     dec = _dec()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        shift_stages(dec, (2, 1, 1))
+    stages = shift_stages(dec, (2, 1, 1), (2,))
+    assert [(st.axis, st.remote) for st in stages] == [(1, False),
+                                                       (0, True)]
+    with pytest.raises(ValueError, match="Mesh"):
+        exchange_shift(torch.zeros((dec.nbricks,) + tuple(dec.bdims)), dec,
+                       (2, 1, 1))
 
 
 def test_bad_intervals_and_storage_raise():

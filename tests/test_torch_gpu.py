@@ -6,10 +6,12 @@ The file imports no JAX, so it also runs on a machine without JAX, where
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 
-K1 (also batched over a subdomain stack), K4, K6 and K8 are compared on
-the bricks they write, K7 on the whole padded array, at abs-or-rel 1e-5
-(FMA contraction and summation order); K2, K3 and K5 only copy, so they
-must be bit-exact.
+K1 (also batched over a subdomain stack), K4 (also batched over the ranks
+of a card), K6 and K8 are compared on the bricks they write, K7 on the
+whole padded array, at abs-or-rel 1e-5 (FMA contraction and summation
+order); K2, K3, K5, K9 and K10 only copy, so they must be bit-exact.  The
+remote-copy kernels run with four (K9) and two (K10) ranks on one card,
+and across two cards where the machine has them.
 """
 
 import numpy as np
@@ -35,9 +37,15 @@ from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
 from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu_torch.comm.exchange import (copy_intervals,
                                               copy_intervals_plain,
-                                              shift_exchange)
+                                              copy_rows_plain, remote_copy,
+                                              rows_table, shift_exchange,
+                                              shift_remote_exchange)
+from bricklib_tpu_torch.comm.mesh import make_domain_mesh, rank_views
 from bricklib_tpu_torch.comm.strong import (StrongDecomp, stage_copy,
-                                            stage_copy_plain, strong_stages)
+                                            stage_copy_plain,
+                                            strong_remote_copy,
+                                            strong_remote_exchange,
+                                            strong_stages)
 from bricklib_tpu_torch.core import (compare_arrays, init_grid, random_array,
                                      random_storage)
 from bricklib_tpu_torch.drivers import strong, weak
@@ -341,3 +349,112 @@ def test_ooc_sweep_on_card_matches_cpu(cuda):
     assert compare_arrays(got, want, 1e-5)
     np.testing.assert_array_equal(g, random_array((40, 16, 256), np.float32,
                                                   7))
+
+
+@pytest.mark.parametrize("skip", [0, 1])
+def test_batched_sweep_4d_kernel_matches_plain(cuda, skip):
+    dec = _dec4()
+    G = dec.grid.shape[:3]
+    x = torch.rand((3 * dec.nbricks,) + dec.bdims,
+                   generator=torch.Generator().manual_seed(9)).to(cuda)
+    fn = pencil_sweep_4d("mpi9pt", dec.grid, dec.bdims, 3 * dec.nbricks,
+                         bench_params(), fuse=2, batch=3,
+                         batch_stride=dec.nbricks,
+                         **{f"{a}_range": (skip, n - skip)
+                            for a, n in zip("wkj", G)})
+    got = fn(x)
+    want = pencil_sweep_plain(x, torch.from_numpy(fn.plan.table).to(cuda),
+                              fn.plan)
+    w = fn.plan.written_bricks()
+    assert len(w) == 3 * int(np.prod([n - 2 * skip for n in G]))
+    assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
+
+
+def _remote_cases(devices_weak, devices_strong):
+    """The K9 exchange of a 32^3-per-rank weak mesh (2, 2, 1) and the K10
+    exchange of a strong mesh (2, 1, 1), with random state."""
+    dec = _dec()
+    wmesh = make_domain_mesh((2, 2, 1), devices=devices_weak)
+    plan = StrongDecomp(dom=(64, 32, 32), sdom=(16, 16, 32),
+                        mesh_shape=(2, 1, 1), bdims=(4, 4, 32),
+                        ghost_depth=(4, 4, 0)).initialize(
+        skinlist_by_name("good", 3))
+    smesh = make_domain_mesh((2, 1, 1), devices=devices_strong)
+    gen = torch.Generator().manual_seed(11)
+
+    def state(mesh, shape):
+        return [torch.rand((len(mesh.ranks_on(c)),) + shape,
+                           generator=gen).to(d)
+                for c, d in enumerate(mesh.cards)]
+
+    return [(remote_copy, shift_remote_exchange(dec, wmesh, table_axes=(2,)),
+             state(wmesh, (dec.nbricks,) + BD)),
+            (strong_remote_copy, strong_remote_exchange(plan, smesh),
+             state(smesh, (plan.nsub_local, plan.sdec.nbricks)
+                   + plan.bdims))]
+
+
+def _check_remote(kernel, ex, state):
+    a = [t.clone() for t in state]
+    b = [t.clone() for t in state]
+    before = kernel.launches
+    ex(a)
+    assert kernel.launches == before + sum(
+        1 for per_card in ex.plan for rows in per_card if rows)
+    flats = [t.view((-1,) + tuple(t.shape[-3:])) for t in b]
+    for per_card in ex.plan:
+        for rows in per_card:
+            copy_rows_plain(flats, rows)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not all(torch.equal(x, y) for x, y in zip(a, state))
+
+
+def test_remote_copy_kernels_match_plain(cuda):
+    for kernel, ex, state in _remote_cases([cuda] * 4, [cuda] * 2):
+        _check_remote(kernel, ex, state)
+
+
+def test_remote_copy_table_checks_rows_for_other_storages(cuda):
+    """A row table skips the per-row checks only on the storage sizes it
+    was made for."""
+    flats = [torch.zeros((10, 4, 4), device=cuda),
+             torch.ones((6, 4, 4), device=cuda)]
+    rows = [(0, 8, 1, 4, 2)]
+    table = rows_table(rows, flats, 0)
+    remote_copy(flats, 0, rows, table)
+    torch.cuda.synchronize()
+    assert flats[0][8:].eq(1).all() and flats[0][:8].eq(0).all()
+    with pytest.raises(ValueError, match="invalid"):
+        remote_copy([flats[0][:9], flats[1]], 0, rows, table)
+
+
+def test_remote_copy_kernels_across_two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    for kernel, ex, state in _remote_cases(
+            ["cuda:0", "cuda:0", "cuda:1", "cuda:1"], ["cuda:0", "cuda:1"]):
+        assert len(ex.waits[0]) == 2       # each card waits on the other
+        _check_remote(kernel, ex, state)
+
+
+@pytest.mark.parametrize("exchange", ["shift", "put", "shift-remote"])
+def test_mesh_step_on_card_matches_cpu(cuda, exchange):
+    kw = dict(STEP, dims=(16, 16, 32), mesh_shape=(2, 2, 1),
+              exchange=exchange)
+    step_c, st_c, dec = weak.build_step(**kw, devices=[cuda] * 4)
+    step_h, st_h, _ = weak.build_step(**kw, device="cpu")
+    got = step_c(st_c)[0].cpu().numpy()
+    want = step_h(st_h)[0].numpy()
+    own = dec.owned_mask()
+    assert compare_arrays(got[:, own], want[:, own], 1e-5)
+
+
+@pytest.mark.parametrize("exchange", ["shift", "remote"])
+def test_strong_mesh_step_on_card_validates(cuda, exchange):
+    kw = dict(dom=(32, 32, 32), sdom=(8, 16, 32), bdim=(4, 4, 32),
+              stencil="s7pt", st_iter=4, fuse=2, mesh_shape=(2, 1, 1),
+              exchange=exchange)
+    step, state, plan, g = strong.build_step(**kw, devices=[cuda] * 2)
+    assert strong.validate_step(step, state, plan, g, "s7pt", 4, step.mesh)
+    assert len(rank_views(step.mesh, state)) == 2

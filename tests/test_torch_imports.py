@@ -32,7 +32,8 @@ from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import pencil_sweep_2d_kernel
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import pencil_sweep_4d_kernel
 from bricklib_tpu_torch.comm.exchange import copy_intervals
-from bricklib_tpu_torch.comm.strong import stage_copy
+from bricklib_tpu_torch.comm.exchange import remote_copy
+from bricklib_tpu_torch.comm.strong import stage_copy, strong_remote_copy
 from bricklib_tpu_torch.bench.roofline import copy_storage
 from bricklib_tpu_torch.api import Problem
 from bricklib_tpu_torch.codegen.dense_kernel import dense_stencil_kernel
@@ -54,6 +55,15 @@ res = strong.run(dom=(32, 32, 32), sdom=(16, 16, 32), bdim=(4, 4, 32),
                  stencil="s7pt", st_iter=4, fuse=2, validate=True, iters=1,
                  device="cpu")
 assert res["calls"]["step"] > 0
+for ex in ("shift", "put", "shift-remote"):
+    res = weak.run(dims=(16, 16, 32), bdim=(8, 8, 32), stencil="s7pt",
+                   st_iter=4, fuse=2, table_periodic=False, mesh_shape=(2, 2, 1),
+                   exchange=ex, validate=True, iters=1, device="cpu")
+    assert res["ranks"] == 4 and res["cards"] == 1
+res = strong.run(dom=(32, 32, 32), sdom=(8, 16, 32), bdim=(4, 4, 32),
+                 stencil="s7pt", st_iter=4, fuse=2, mesh_shape=(2, 1, 1),
+                 exchange="remote", validate=True, iters=1, device="cpu")
+assert res["ranks"] == 2
 i, j = Index(0), Index(1)
 g, o = Grid("in", 2), Grid("out", 2)
 o(i, j).assign(ConstRef("0.6") * g(i, j)
@@ -76,7 +86,8 @@ assert (pencil_sweep_kernel.launches, pencil_sweep_2d_kernel.launches,
         pencil_sweep_4d_kernel.launches, copy_intervals.launches,
         stage_copy.launches, copy_storage.launches,
         pencil_sweep_mxu_kernel.launches,
-        dense_stencil_kernel.launches) == (0,) * 8
+        dense_stencil_kernel.launches, remote_copy.launches,
+        strong_remote_copy.launches) == (0,) * 10
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules
@@ -143,7 +154,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert _build.source_digest() == _build.source_digest()
     assert {p.name for p in _build.sources()} == {
         "brick_copy.cu", "dense_stencil.cu", "pencil_sweep.cu",
-        "pencil_sweep_2d.cu", "pencil_sweep_4d.cu", "pencil_sweep_mxu.cu"}
+        "pencil_sweep_2d.cu", "pencil_sweep_4d.cu", "pencil_sweep_mxu.cu",
+        "remote_copy.cu"}
     for name, argtypes in _build.SIGNATURES.items():
         assert name.startswith("bt_") and argtypes[-1] is ctypes.c_void_p
 

@@ -31,6 +31,7 @@ from bricklib_tpu_torch import stencils as port_stencils
 from bricklib_tpu_torch.codegen.pencil_kernel import (pencil_sweep,
                                                       pencil_sweep_kernel)
 from bricklib_tpu_torch.comm.exchange import check_stage
+from bricklib_tpu_torch.comm.mesh import make_domain_mesh
 from bricklib_tpu_torch.comm.strong import (StrongDecomp,
                                             exchange_strong_remote,
                                             exchange_strong_shift,
@@ -129,11 +130,17 @@ def test_stages_are_disjoint_and_planned_once():
 
 
 def test_multi_device_mesh_raises():
+    """A plan of several ranks takes a Mesh of its shape and the mesh's
+    state (``tests/test_torch_mesh_exchange.py`` holds that against the
+    reference); one bare stack, or a mesh of another shape, raises."""
     _ref, port = _plans(CUBIC, (2, 1, 1))
     x = torch.zeros((port.nsub_local, port.sdec.nbricks) + CUBIC["bdims"])
     for fn in (exchange_strong_shift, exchange_strong_remote):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(ValueError, match="Mesh"):
             fn(x, port)
+        with pytest.raises(ValueError, match="not the plan"):
+            fn([x[None]], port, mesh=make_domain_mesh((1, 1, 1),
+                                                      devices=["cpu"]))
 
 
 def test_stage_copy_checks_its_intervals():
@@ -263,12 +270,17 @@ def test_cuda_without_a_card_raises():
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(backend="jnp"), NotImplementedError, "torch oracle"),
-    (dict(mesh_shape=(2, 1, 1)), NotImplementedError, "multi-GPU"),
+    # a mesh of more ranks than cards, with no devices given
+    (dict(mesh_shape=(16, 1, 1), device="cuda", dom=(512, 32, 32)),
+     ValueError, "CUDA devices"),
     (dict(sdom=(16, 16, 16)), NotImplementedError, "i-bricked"),
     (dict(exchange="put"), ValueError, "exchange is"),
     (dict(st_iter=8), ValueError, "ghost depth"),
     (dict(fuse=3), ValueError, "multiple of fuse"),
-])
+], ids=["kw0-NotImplementedError-torch oracle",
+        "kw1-NotImplementedError-multi-GPU",
+        "kw2-NotImplementedError-i-bricked", "kw3-ValueError-exchange is",
+        "kw4-ValueError-ghost depth", "kw5-ValueError-multiple of fuse"])
 def test_unported_and_bad_options_raise(kw, err, match):
     args = dict(STEP, device="cpu")
     args.update(kw)

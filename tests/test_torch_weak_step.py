@@ -104,20 +104,29 @@ def test_cuda_without_a_card_raises():
         weak.run(**STEP, backend="pencil", iters=1)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(backend="jnp"), "torch oracle"),
-    (dict(exchange="put"), "multi-GPU"),
-    (dict(exchange="shift-remote"), "kernel-level exchanges"),
-    (dict(exchange="fused"), "kernel-level exchanges"),
-    (dict(overlap=True), "pencil_sweep features"),
-    (dict(profile_dir="trace"), "the rest"),
-    (dict(f64_validate=True), "torch oracle"),
-    (dict(mesh_shape=(2, 1, 1)), "multi-GPU"),
-])
-def test_unported_options_raise(kw, item):
+@pytest.mark.parametrize("kw,err,item", [
+    (dict(backend="jnp"), NotImplementedError, "torch oracle"),
+    # a mesh of more ranks than cards, with no devices given
+    (dict(exchange="put", mesh_shape=(64, 1, 1), device="cuda"), ValueError,
+     "CUDA devices"),
+    (dict(exchange="fused", mesh_shape=(2, 1, 1)), NotImplementedError,
+     "kernel-level exchanges"),
+    (dict(exchange="fused"), NotImplementedError, "kernel-level exchanges"),
+    (dict(overlap=True), NotImplementedError, "pencil_sweep features"),
+    (dict(profile_dir="trace"), NotImplementedError, "the rest"),
+    (dict(f64_validate=True), NotImplementedError, "torch oracle"),
+    (dict(mesh_shape=(16, 1, 1), device="cuda"), ValueError, "CUDA devices"),
+], ids=["kw0-torch oracle", "kw1-multi-GPU", "kw2-kernel-level exchanges",
+        "kw3-kernel-level exchanges", "kw4-pencil_sweep features",
+        "kw5-the rest", "kw6-torch oracle", "kw7-multi-GPU"])
+def test_unported_options_raise(kw, err, item):
+    """What the weak driver still refuses: the options of later slices,
+    and a mesh of more ranks than cards when no devices are given (the
+    PUT and mesh cases of earlier slices now run, in
+    ``tests/test_torch_mesh_steps.py``)."""
     args = dict(STEP, backend="pencil", device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=item):
         weak.run(**args)
 
 
@@ -185,7 +194,8 @@ def test_cli_runs_the_4d_step_on_cpu(capsys):
     # the reference driver refuses 2-D domains too: they run through
     # api.Problem
     (dict(dims=(32, 32), bdim=(8, 32)), ValueError, "3-D or 4-D"),
-    (dict(mesh_shape=(1, 1, 1)), NotImplementedError, "multi-GPU"),
+    # a mesh needs one entry per domain axis
+    (dict(mesh_shape=(1, 1, 1)), ValueError, "one entry per axis"),
 ], ids=["kw0-2-D", "kw1-multi-GPU"])
 def test_unported_ranks_and_meshes_raise(kw, err, match):
     args = dict(STEP4, backend="pencil", device="cpu")
