@@ -54,6 +54,9 @@ SIGNATURES = {
     "bt_copy_storage": [_VOID, _VOID, _I64, _VOID],
     "bt_remote_copy": [_VOID, _INT, _VOID, _INT, _I64, _VOID],
     "bt_strong_remote_copy": [_VOID, _INT, _VOID, _INT, _I64, _VOID],
+    "bt_fused_exchange": [_VOID, _VOID, _INT, _INT, _VOID, _I64, _VOID, _I64,
+                          _VOID, _VOID, _I64, _VOID, _VOID] + [_INT] * 14
+                         + [_VOID, _VOID, _INT, _INT, _VOID],
 }
 # the peer-access entry points (no stream): device, peer[, int* ok]
 DEVICE_SIGNATURES = {

@@ -1,5 +1,5 @@
 """High-level API on PyTorch: declare a stencil problem, step it, read it
-back (port of ``bricklib_tpu/api.py``, one device).
+back (port of ``bricklib_tpu/api.py``).
 
     from bricklib_tpu_torch.api import Problem
 
@@ -8,17 +8,31 @@ back (port of ``bricklib_tpu/api.py``, one device).
     p.step(5)                     # 5 steps of st_iter iterations each
     out = p.result()              # dense numpy array (owned region)
 
-The port runs the pencil backend on one device, with every axis
-periodic through the grid table (no ghost exchange): rank 2 over kernel
-K6 (``codegen.pencil_kernel_2d``: single fields, aux fields and stencil
+The port runs the pencil backend: rank 2 over kernel K6
+(``codegen.pencil_kernel_2d``: single fields, aux fields and stencil
 systems), ranks 3 and 4 over kernels K1 and K4 (single-field,
-single-input stencils).  ``backend="mxu"`` runs a single-field linear
+single-input stencils); ``backend="mxu"`` runs a single-field linear
 3-D stencil over flat-pencil storage ``(nbricks, BK, BJ*BI)``, one
-kernel K8 sweep (``codegen.mxu_kernel``) per iteration.  ``device``
-defaults to ``cuda`` and raises where there is none; the tests pass
-``device="cpu"``, which runs the kernels' plain versions.  The
-reference's other options raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+kernel K8 sweep (``codegen.mxu_kernel``) per iteration.
+
+``dims`` are per rank, as in the reference.  On one rank every axis is
+periodic through the grid table and nothing is exchanged.  On a mesh
+(``mesh``, and ``slices`` stacked along the outermost axis: a mesh of
+``eff_mesh`` ranks) the axes of one rank stay on the table and a step
+is one SHIFT exchange (``comm.exchange.shift_exchange``) then
+``st_iter / fuse`` sweeps, ghost-inclusive except the last: K1 and K4
+batched over each card's ranks, K6 and K8 rank by rank.  With
+``exchange="fused"`` (3-D pencil) the first sweep is kernel K11
+(``codegen.fused_exchange``), which carries the PUT exchange, over a
+flat mesh, and ``(st_iter - 1) / fuse`` sweeps follow.  ``devices``
+places the ranks, one device per rank in ravel order, repeats allowed
+(four ranks on one card: ``devices=["cuda:0"] * 4``); without it a mesh
+takes one card per rank and raises where there are too few, and
+``device`` (``cuda`` by default, raising where there is none) holds a
+one-rank problem.  The tests pass ``device="cpu"``, which puts every rank
+on the CPU and runs the kernels' plain versions.  The reference's other
+options raise ``NotImplementedError`` naming the ROADMAP.md item that
+brings them.
 """
 
 from __future__ import annotations
@@ -29,12 +43,14 @@ import torch
 from .codegen.evaluate import resolve_const_from_params
 from .codegen.ir import (PASS_FUSE_MAX, StencilIR, fold_linear,
                          generic_pass_estimate, vpu_pass_estimate)
+from .codegen.fused_exchange import pencil_sweep_fusedx
 from .codegen.mxu_kernel import pencil_sweep_mxu
 from .codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
 from .codegen.pencil_kernel_2d import pencil_sweep_2d
 from .codegen.pencil_kernel_4d import pencil_sweep_4d, tile_4d
 from .comm import BrickDecomp, skinlist_by_name
-from .comm.exchange import MULTI_GPU_ITEM
+from .comm.exchange import on_card, put_plan, shift_exchange
+from .comm.mesh import Mesh, make_domain_mesh, rank_views, to_state
 from .convert import storage_from_reference
 from .core import not_ported, random_array, require_device
 from .core.setup import from_bricks, to_bricks
@@ -61,13 +77,15 @@ class Problem:
                  bdims=None, ghost=None, mesh=(1, 1, 1),
                  backend="auto", dtype=np.float32, st_iter=1,
                  exchange="shift", field=None, slices=1,
-                 schedule=None, device="cuda"):
+                 schedule=None, device="cuda", devices=None):
         """Arguments as the reference's ``Problem`` (multi-input stencils
         take ``field`` and static aux fields; systems take a list of
         StencilDefs and ``field=(name1, ...)``; ``schedule`` takes
         ``fuse``, ``fuse_passes``, ``lookahead``, ``tile_j`` and
         ``vmem_limit_mb``, of which the last three are TPU knobs, accepted
-        and ignored), plus ``device``."""
+        and ignored), plus ``device`` (a one-rank problem's device) and
+        ``devices`` (one per rank of ``eff_mesh``, ravel order, repeats
+        allowed)."""
         self.dims = tuple(int(d) for d in dims)
         nd = len(self.dims)
         mesh = tuple(int(m) for m in mesh)
@@ -153,9 +171,6 @@ class Problem:
         if backend == "pencil" and nd not in (2, 3, 4):
             raise ValueError("pencil backend is 2-D/3-D/4-D; use "
                              "backend='jnp' for other ranks")
-        if int(np.prod(self.eff_mesh)) > 1:
-            raise not_ported(f"a mesh of {int(np.prod(self.eff_mesh))} "
-                             "devices", MULTI_GPU_ITEM)
         if backend == "jnp":
             raise not_ported("backend='jnp'", ORACLE_ITEM)
         if backend not in ("pencil", "mxu"):
@@ -185,14 +200,15 @@ class Problem:
 
         if exchange not in ("shift", "fused"):
             raise ValueError("exchange is 'shift' or 'fused'")
+        if exchange == "fused" and backend != "pencil":
+            raise ValueError("exchange='fused' runs on the pencil "
+                             "backend")
         if exchange == "fused" and (self.aux_names or nfld > 1):
             raise ValueError("exchange='fused' supports single-field, "
                              "single-input stencils; use "
                              "exchange='shift'")
         if exchange == "fused" and nd != 3:
             raise ValueError("exchange='fused' is 3-D pencil only")
-        if exchange == "fused":
-            raise not_ported("exchange='fused'", "kernel-level exchanges")
         self.exchange = exchange
         if np.dtype(dtype) != np.float32:
             raise not_ported(f"dtype {np.dtype(dtype).name}", FEATURES_ITEM)
@@ -200,15 +216,21 @@ class Problem:
         if nd in (3, 4) and (nfld > 1 or self.aux_names):
             raise not_ported(f"aux fields and stencil systems on rank {nd}",
                              FEATURES_ITEM)
-        self.device = require_device(device)
         self.dec = BrickDecomp(dims=self.dims, ghost_depth=self.ghost,
                                bdims=self.bdims).initialize(
             skinlist_by_name("good", nd))
+        if self.slices > 1 and exchange == "fused":
+            raise ValueError(
+                "exchange='fused' issues kernel remote DMAs, an "
+                "ICI-only transport; multi-slice meshes use "
+                "exchange='shift' (cross-slice stages lower to "
+                "DCN collective-permutes)")
 
         self.st_iter = int(st_iter)
         rad = max(max(max(lo_r), max(hi_r))
                   for lo_r, hi_r in (s.radius() for s in sdefs))
-        dec, bd = self.dec, self.bdims
+        dec, msh, bd = self.dec, self.eff_mesh, self.bdims
+        nb = dec.nbricks
         _sch = self.schedule
         _sch_fuse = _sch.get("fuse")
         _sch_fuse = None if _sch_fuse is None else int(_sch_fuse)
@@ -224,16 +246,35 @@ class Problem:
                     f"(fuse*radius within the brick/ghost depth)")
             return req
 
-        # one device: every axis is periodic through the grid table
-        table_axes = tuple(range(nd))
+        # axes of one rank are periodic through the grid table; the others
+        # exchange real ghost bricks before every step
+        table_axes = tuple(a for a in range(nd) if msh[a] == 1)
+        distributed = len(table_axes) < nd
+        gmin = min(bd[:-1])
+        if distributed and self.st_iter * rad > gmin:
+            raise ValueError(
+                f"st_iter {self.st_iter} x radius {rad} exceeds "
+                f"ghost depth {gmin}")
         kgrid = dec.periodic_grid(table_axes)
+        fused_x = exchange == "fused" and distributed
+
+        def _rng(skip):
+            # outer-axis ranges: 2-D y; 3-D (k, j); 4-D (w, k, j); table
+            # axes compute owned rows only
+            return {f"{'wkj'[a + 4 - nd] if nd > 2 else 'y'}_range":
+                    (1, kgrid.shape[a] - 1) if a in table_axes
+                    else (skip, kgrid.shape[a] - skip)
+                    for a in range(nd - 1)}
+
+        ghost_kern = batched = None
         if backend == "mxu":
             # fuse=1: the factorized form is the amortization
             fuse = 1
-            GK, GJ = kgrid.shape[:2]
-            kern = pencil_sweep_mxu(self.sdef, kgrid, bd, dec.nbricks,
-                                    self.params, k_range=(1, GK - 1),
-                                    j_range=(1, GJ - 1))
+            kern = pencil_sweep_mxu(self.sdef, kgrid, bd, nb, self.params,
+                                    **_rng(1))
+            if self.st_iter > 1 and distributed:
+                ghost_kern = pencil_sweep_mxu(self.sdef, kgrid, bd, nb,
+                                              self.params, **_rng(0))
             plan = kern.plan
             info = {"kernel": "K8 pencil_sweep_mxu",
                     "w_profiles": kern.n_wprofiles,
@@ -257,10 +298,13 @@ class Problem:
                                 and cand * rad <= bd[0]):
                             fuse = cand
                             break
-            GY = kgrid.shape[0]
-            kern = pencil_sweep_2d(
-                sdefs if nfld > 1 else self.sdef, kgrid, bd, dec.nbricks,
-                self.params, y_range=(1, GY - 1), fuse=fuse)
+            sd_or_sys = sdefs if nfld > 1 else self.sdef
+            kern = pencil_sweep_2d(sd_or_sys, kgrid, bd, nb, self.params,
+                                   fuse=fuse, **_rng(1))
+            if self.st_iter > fuse and distributed:
+                ghost_kern = pencil_sweep_2d(sd_or_sys, kgrid, bd, nb,
+                                             self.params, fuse=fuse,
+                                             **_rng(0))
             plan = kern.plan
             info = {"kernel": "K6 pencil_sweep_2d",
                     "taps": (None if plan.taps is None
@@ -268,10 +312,13 @@ class Problem:
             if plan.taps is not None:
                 info["tile_x"], info["smem_bytes"] = plan.tile()
         else:
+            # the fused exchange runs its own first sweep at fuse=1, so
+            # it fuses only the remaining st_iter - 1 iterations
+            budget = self.st_iter - 1 if fused_x else self.st_iter
             fuse = 1
             if _sch_fuse is not None:
                 fuse = _fit_fuse(
-                    _sch_fuse, self.st_iter,
+                    _sch_fuse, budget,
                     lambda c: all(c * rad <= b for b in bd[:-1]))
             else:
                 np_ = _passes(sdefs[0], self.params)
@@ -280,15 +327,27 @@ class Problem:
                 top = 4 if nd == 3 else 2
                 cands = (4, 2) if np_ <= pass_max else ()
                 for cand in (c for c in cands if c <= top):
-                    if (self.st_iter % cand == 0 and self.st_iter
+                    if (budget % cand == 0 and budget
                             and all(cand * rad <= b for b in bd[:-1])):
                         fuse = cand
                         break
-            rng = {f"{'wkj'[a + 4 - nd]}_range": (1, kgrid.shape[a] - 1)
-                   for a in range(nd - 1)}
             sweep = pencil_sweep if nd == 3 else pencil_sweep_4d
-            kern = sweep(self.sdef, kgrid, bd, dec.nbricks, self.params,
-                         fuse=fuse, **rng)
+            by_batch: dict = {}
+
+            def batched(p):
+                """The owned-only and ghost-inclusive sweeps over the
+                ``p`` ranks of a card, one launch each."""
+                if p not in by_batch:
+                    kw = dict(fuse=fuse, batch=p, batch_stride=nb)
+                    by_batch[p] = (
+                        sweep(self.sdef, kgrid, bd, p * nb, self.params,
+                              **_rng(1), **kw),
+                        sweep(self.sdef, kgrid, bd, p * nb, self.params,
+                              **_rng(0), **kw)
+                        if budget > fuse and distributed else None)
+                return by_batch[p]
+
+            kern = batched(1)[0]
             plan = kern.plan
             info = {"kernel": ("K1 pencil_sweep" if nd == 3
                                else "K4 pencil_sweep_4d"),
@@ -300,26 +359,86 @@ class Problem:
                 (info["tile_w"], info["tile_i"],
                  info["smem_bytes"]) = tile_4d(plan)
         self.fuse = fuse
-        nsweeps = self.st_iter // fuse
-        self._kern = kern
 
-        def one(*sv):
-            states = list(sv[:nfld])
-            vs = dict(zip(self.aux_names, sv[nfld:]))
-            for _ in range(nsweeps):
-                vs.update(zip(self.fields, states))
-                outs = (kern(*(vs[n] for n in kern.fields))
-                        if hasattr(kern, "fields") else kern(states[0]))
-                states = list(outs) if nfld > 1 else [outs]
+        n = int(np.prod(msh))
+        if devices is None:
+            self.device = require_device(device)
+            if self.device.type == "cpu" or n == 1:
+                devices = [self.device] * n
+        dmesh = make_domain_mesh(msh, devices=devices)
+        self.device = dmesh.devices[0]
+        # the fused exchange addresses ranks by their linear id over one
+        # flat axis, placement-identical to the domain mesh
+        self.mesh = (Mesh((n,), ("dev",), dmesh.devices) if fused_x
+                     else dmesh)
+        exchange_fn = fusedx = None
+        if fused_x:
+            fusedx = pencil_sweep_fusedx(
+                self.sdef, kgrid, bd, nb, put_plan(dec, msh, table_axes),
+                msh, self.params, mesh=self.mesh,
+                **_rng(0 if self.st_iter > 1 else 1))
+            nsweeps = (self.st_iter - 1) // fuse
+            info["fused_kernel"] = "K11 pencil_sweep_fusedx"
+        else:
+            if distributed:
+                exchange_fn = shift_exchange(dec, self.mesh,
+                                             table_axes=table_axes)
+            nsweeps = self.st_iter // fuse
+        cards = self.mesh.cards
+
+        def by_rank(k, states):
+            """``k`` on every rank's views of ``states`` (per field, in
+            ``k``'s field order); per output, the new state (a copy per
+            card stacks several ranks' outputs)."""
+            outs = None
+            for c, dev in enumerate(cards):
+                with on_card(dev):
+                    res = [k(*(st[c][s] for st in states))
+                           for s in range(states[0][c].shape[0])]
+                res = [r if isinstance(r, tuple) else (r,) for r in res]
+                if outs is None:
+                    outs = [[] for _ in res[0]]
+                for o, per in enumerate(outs):
+                    per.append(res[0][o].unsqueeze(0) if len(res) == 1
+                               else torch.stack([r[o] for r in res]))
+            return outs
+
+        def sweep_once(last, states, auxv):
+            if batched is not None:
+                out = []
+                for t in states[0]:
+                    fn, ghost_fn = batched(t.shape[0])
+                    k = fn if (last or ghost_fn is None) else ghost_fn
+                    with on_card(t.device):
+                        out.append(k(t.view((-1,) + t.shape[2:])).view(
+                            t.shape))
+                return [out]
+            k = kern if (last or ghost_kern is None) else ghost_kern
+            vs = dict(zip(self.aux_names, auxv))
+            vs.update(zip(self.fields, states))
+            names = k.fields if hasattr(k, "fields") else self.fields[:1]
+            return by_rank(k, [vs[n_] for n_ in names])
+
+        def one(states, auxv):
+            states = list(states)
+            if fusedx is not None:
+                states = [fusedx(states[0])[0]]
+            elif exchange_fn is not None:
+                for st in states:
+                    exchange_fn(st)
+            for it in range(nsweeps):
+                states = sweep_once(it == nsweeps - 1, states, auxv)
             return states
 
         self._one = one
         self._exec_plan = {
-            "backend": backend, "fuse": fuse, "exchange": "table",
+            "backend": backend, "fuse": fuse,
+            "exchange": ("fused" if fusedx is not None
+                         else exchange if distributed else "table"),
             "table_axes": list(table_axes), "kernels": [info],
         }
-        self._dats = None
-        self._aux = ()
+        self._states = None
+        self._aux_states = ()
 
     # ------------------------------------------------------------------
     def differentiable_step(self, *args, **kw):
@@ -335,10 +454,41 @@ class Problem:
     def export_step(self, *args, **kw):
         raise not_ported("Problem.export_step", REST_ITEM)
 
+    @property
+    def _ndev(self) -> int:
+        return int(np.prod(self.eff_mesh))
+
+    def _coords(self, rank: int) -> tuple[int, ...]:
+        """Rank ``rank``'s block coordinates (ravel order over
+        ``eff_mesh``)."""
+        return tuple(int(c) for c in np.unravel_index(rank, self.eff_mesh))
+
+    def _flat(self, state):
+        """A state as the reference's stacked storage ``[ranks * nbricks,
+        ...]`` on its card, or, on several cards, the per-card list."""
+        if len(state) > 1:
+            return state
+        return state[0].view((-1,) + tuple(state[0].shape[2:]))
+
+    @property
+    def _dats(self):
+        """Per evolving field, its storage: ``[ranks * nbricks, ...]``
+        stacked along the brick axis in ravel order (the reference's
+        layout) where every rank is on one card; the per-card states
+        otherwise."""
+        if self._states is None:
+            return None
+        return tuple(self._flat(s) for s in self._states)
+
+    @property
+    def _aux(self):
+        return tuple(self._flat(s) for s in self._aux_states)
+
     def owned_mask(self) -> torch.Tensor:
-        """Broadcastable 0/1 mask over the storage selecting the OWNED
-        brick rows (storage rank 3 for the flat-pencil backend)."""
-        m = self.dec.owned_mask()
+        """Broadcastable 0/1 mask over the stacked storage selecting each
+        rank's OWNED brick rows (storage rank 3 for the flat-pencil
+        backend), on the device of rank 0."""
+        m = np.tile(self.dec.owned_mask(), self._ndev)
         srank = 3 if self.backend == "mxu" else 1 + len(self.bdims)
         m = m.reshape((-1,) + (1,) * (srank - 1))
         return torch.from_numpy(np.ascontiguousarray(m)).to(self.device)
@@ -348,8 +498,18 @@ class Problem:
         exchange form per domain axis, and per kernel its tile, shared
         memory and folded tap counts."""
         nd = len(self.dims)
-        form = ("table-periodic" if self.backend == "pencil"
-                else "local ghost copy")
+        form = self._exec_plan.get("exchange", "shift")
+        per_axis = {}
+        for a in range(nd):
+            if self.eff_mesh[a] == 1:
+                per_axis[a] = ("table-periodic" if self.backend == "pencil"
+                               else "local ghost copy")
+            elif a == 0 and self.slices > 1:
+                per_axis[a] = (f"{form} ppermute over (slice x ici): "
+                               f"{self.slices} DCN slices x "
+                               f"{self.mesh_shape[0]} ICI")
+            else:
+                per_axis[a] = f"{form} ppermute over ICI"
         return {
             "dims": list(self.dims), "bdims": list(self.bdims),
             "mesh": list(self.mesh_shape), "slices": self.slices,
@@ -357,7 +517,7 @@ class Problem:
             "st_iter": self.st_iter,
             "dtype": np.dtype(self.dtype).name,
             "fields": list(self.fields), "aux": list(self.aux_names),
-            "exchange_axes": {a: form for a in range(nd)},
+            "exchange_axes": per_axis,
             **({"schedule": dict(self.schedule)} if self.schedule
                else {}),
             **self._exec_plan,
@@ -365,32 +525,37 @@ class Problem:
         }
 
     # ------------------------------------------------------------------
-    def _stack_global(self, array) -> np.ndarray:
-        """Global periodic array -> brick storage (ghost filled by
-        wrap)."""
-        gshape = self.dims
+    def _stack_global(self, array) -> list[np.ndarray]:
+        """Global periodic array (``eff_mesh * dims``) -> each rank's brick
+        storage, ravel order (ghost filled by wrap)."""
+        nd = len(self.dims)
+        gshape = tuple(m * d for m, d in zip(self.eff_mesh, self.dims))
         array = np.asarray(array, dtype=self.dtype)
         if array.shape != gshape:
             raise ValueError(f"global array must be {gshape}")
-        nd = len(self.dims)
         nb = self.dec.nbricks
-        idx = [np.arange(-self.ghost[a], self.dims[a] + self.ghost[a])
-               % gshape[a] for a in range(nd)]
-        dat = np.zeros((nb, int(np.prod(self.bdims))), self.dtype)
-        to_bricks(np.ascontiguousarray(array[np.ix_(*idx)]), self.dec.grid,
-                  self.bdims, dat=dat)
-        return dat.reshape((-1,) + self.bdims)
-
-    def _put(self, host: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(host).to(self.device)
+        out = []
+        for r in range(self._ndev):
+            c = self._coords(r)
+            idx = [np.arange(c[a] * self.dims[a] - self.ghost[a],
+                             (c[a] + 1) * self.dims[a] + self.ghost[a])
+                   % gshape[a] for a in range(nd)]
+            dat = np.zeros((nb, int(np.prod(self.bdims))), self.dtype)
+            to_bricks(np.ascontiguousarray(array[np.ix_(*idx)]),
+                      self.dec.grid, self.bdims, dat=dat)
+            if self.backend == "mxu":   # flat-pencil storage (a view)
+                out.append(dat.reshape(nb, self.bdims[0], -1))
+            else:
+                out.append(dat.reshape((-1,) + self.bdims))
+        return out
 
     def init(self, array=None, seed: int = 0, aux=None):
-        """Load the owned data from global arrays (shape ``dims``,
+        """Load the owned data from global arrays (shape ``mesh * dims``,
         periodic) or random values.  Single-field problems take
         ``array=<array>``; stencil systems take ``array={field: array}``
         (missing fields default to seeded random).  ``aux``: dict of
         global arrays for the static auxiliary fields."""
-        gshape = self.dims
+        gshape = tuple(m * d for m, d in zip(self.eff_mesh, self.dims))
         if self.nfld == 1 and not isinstance(array, dict):
             array = {self.gname: array}
         elif array is not None and not isinstance(array, dict):
@@ -416,19 +581,16 @@ class Problem:
                              f"inputs are {self.aux_names}")
         aux_stk = [self._stack_global(aux[n]) for n in self.aux_names]
         dat_stk = [self._stack_global(array[f_]) for f_ in self.fields]
-        if self.backend == "mxu":   # flat-pencil storage (a view)
-            dat_stk = [d.reshape(d.shape[0], self.bdims[0], -1)
-                       for d in dat_stk]
-        self._aux = tuple(self._put(s) for s in aux_stk)
-        self._dats = tuple(self._put(s) for s in dat_stk)
+        self._aux_states = tuple(to_state(self.mesh, s) for s in aux_stk)
+        self._states = tuple(to_state(self.mesh, s) for s in dat_stk)
         return self
 
     def step(self, n: int = 1):
         """Advance ``n`` steps of ``st_iter`` stencil iterations each."""
-        if self._dats is None:
+        if self._states is None:
             raise RuntimeError("call init() first")
         for _ in range(n):
-            self._dats = tuple(self._one(*self._dats, *self._aux))
+            self._states = tuple(self._one(self._states, self._aux_states))
         return self
 
     def rollout(self, n: int):
@@ -440,34 +602,36 @@ class Problem:
             raise ValueError("rollout needs n >= 1")
         return self.step(n)
 
+    def _host(self, state) -> np.ndarray:
+        """A state as the reference's stacked host array, ravel order."""
+        return np.concatenate([v.detach().cpu().numpy()
+                               for v in rank_views(self.mesh, state)])
+
     def save(self, path: str):
         """Checkpoint the brick state and the problem's configuration, in
-        the reference's ``.npz`` layout."""
-        if self._dats is None:
+        the reference's ``.npz`` layout (every rank's storage stacked
+        along the brick axis, ravel order)."""
+        if self._states is None:
             raise RuntimeError("nothing to save; call init() first")
-
-        def host(t):
-            return t.detach().cpu().numpy()
-
         np.savez_compressed(
             path,
-            dat=host(self._dats[0]),
+            dat=self._host(self._states[0]),
             dims=np.asarray(self.dims),
             mesh=np.asarray(self.mesh_shape),
             slices=np.asarray(self.slices),
             bdims=np.asarray(self.bdims),
             ghost=np.asarray(self.ghost),
-            **{f"dat_{n}": host(a)
-               for n, a in zip(self.fields[1:], self._dats[1:])},
-            **{f"aux_{n}": host(a)
-               for n, a in zip(self.aux_names, self._aux)})
+            **{f"dat_{n}": self._host(s)
+               for n, s in zip(self.fields[1:], self._states[1:])},
+            **{f"aux_{n}": self._host(s)
+               for n, s in zip(self.aux_names, self._aux_states)})
         return self
 
     def load(self, path: str):
         """Restore a checkpoint saved by :meth:`save`, or by the
         reference's ``Problem.save`` (the configuration must match this
         Problem; the flat-pencil backend's state is ``(nbricks, BK,
-        BJ*BI)``)."""
+        BJ*BI)`` per rank)."""
         z = np.load(path if path.endswith(".npz") else path + ".npz")
         for name, mine in (("dims", self.dims), ("mesh", self.mesh_shape),
                            ("slices", (self.slices,)),
@@ -484,29 +648,41 @@ class Problem:
                    + [n for n in self.aux_names if f"aux_{n}" not in z])
         if missing:
             raise ValueError(f"checkpoint lacks fields {missing}")
-        self._dats = tuple(storage_from_reference(z[k], self.device)
-                           for k in keys)
-        self._aux = tuple(storage_from_reference(z[f"aux_{n}"], self.device)
-                          for n in self.aux_names)
+
+        def state(a):
+            host = storage_from_reference(a, "cpu").numpy()
+            return to_state(self.mesh, np.split(host, self._ndev))
+
+        self._states = tuple(state(z[k]) for k in keys)
+        self._aux_states = tuple(state(z[f"aux_{n}"])
+                                 for n in self.aux_names)
         return self
 
-    def _gather(self, dat) -> np.ndarray:
-        out = dat.detach().cpu().numpy()
+    def _gather(self, state) -> np.ndarray:
+        nd = len(self.dims)
         nb = self.dec.nbricks
-        return from_bricks(np.ascontiguousarray(out.reshape(nb, -1)),
-                           self.dec.interior_grid(), self.bdims)
+        gshape = tuple(m * d for m, d in zip(self.eff_mesh, self.dims))
+        full = np.zeros(gshape, self.dtype)
+        for r, v in enumerate(rank_views(self.mesh, state)):
+            own = from_bricks(np.ascontiguousarray(
+                v.detach().cpu().numpy().reshape(nb, -1)),
+                self.dec.interior_grid(), self.bdims)
+            c = self._coords(r)
+            full[tuple(slice(c[a] * self.dims[a], (c[a] + 1) * self.dims[a])
+                       for a in range(nd))] = own
+        return full
 
     def result(self, field: str | None = None):
-        """Gather the owned region back to dense array(s): single-field
-        problems return the array; systems return ``{field: array}`` (or
-        one array when ``field`` names one)."""
-        if self._dats is None:
+        """Gather the owned region back to dense global array(s):
+        single-field problems return the array; systems return ``{field:
+        array}`` (or one array when ``field`` names one)."""
+        if self._states is None:
             raise RuntimeError("no state; call init() first")
         if field is not None:
             if field not in self.fields:
                 raise ValueError(f"unknown field {field!r}")
-            return self._gather(self._dats[self.fields.index(field)])
+            return self._gather(self._states[self.fields.index(field)])
         if self.nfld == 1:
-            return self._gather(self._dats[0])
-        return {f_: self._gather(d)
-                for f_, d in zip(self.fields, self._dats)}
+            return self._gather(self._states[0])
+        return {f_: self._gather(s)
+                for f_, s in zip(self.fields, self._states)}

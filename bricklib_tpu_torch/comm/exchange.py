@@ -19,6 +19,9 @@
   carrying the card's local copies and its ranks' pushes into their
   neighbours' ghosts, which may lie on another card; the stages are
   ordered across cards by CUDA events (:func:`event_plan`).
+- The PUT plan of the fused sweep (:func:`put_plan`, :func:`put_send_ids`,
+  numpy over rank ids): kernel K11 (``codegen/fused_exchange.py``) runs
+  its copies inside the first sweep.
 
 A mesh's state is one ``[p, nbricks, ...]`` tensor per card
 (:mod:`.mesh`); every function here updates it in place and returns it.
@@ -39,7 +42,6 @@ from .. import _build
 from .decomp import BrickDecomp
 from .mesh import Mesh, check_state, domain_axis_names
 
-MULTI_GPU_ITEM = "multi-GPU"
 # the most storages one K9 or K10 launch addresses (passed by value)
 MAX_CARDS = 8
 
@@ -221,6 +223,80 @@ def put_copies(decomp: BrickDecomp, mesh_shape, table_axes=()):
         for r in range(int(np.prod(mesh_shape))):
             out.append((r, gr.pos, gr.pos + gr.len, src_of[r], sr.pos,
                         sr.pos + sr.len, remote))
+    check_copies(out)
+    return out
+
+
+class PutPlan(list):
+    """:func:`put_plan`'s entry list, carrying the decomposition's
+    ghost-brick ring counts (``ghost_rings``), from which the fused sweep
+    derives its gates instead of trusting a value given by its caller."""
+
+    ghost_rings: tuple[int, ...] = (1, 1)
+
+
+def put_plan(decomp: BrickDecomp, mesh_shape, table_axes=()) -> PutPlan:
+    """The PUT exchange as the fused sweep runs it (``put_plan``,
+    ``bricklib_tpu/comm/exchange.py:457-494``): one entry per (ghost run,
+    skin run) pair whose direction lies on exchanged (non-table) axes,
+    ``(delta, d0, d1, s0, s1, remote, group)``.  ``delta`` is the
+    mesh-coordinate offset of the rank the ghost copies from, the rows are
+    storage intervals, ``remote`` marks directions that cross ranks, and
+    ``group`` names the gate the fused sweep waits on: ``"klo"``/``"khi"``
+    for the pure-k faces, ``"j"`` for the j faces and every corner."""
+    nd = decomp.ndim
+    table = set(table_axes)
+    plan = []
+    for gr, sr in zip(decomp.ghost, decomp.skin):
+        axes = {decomp._tag_axis(t) for t in gr.neighbor}
+        if axes & table:
+            continue
+        delta = _delta(gr.neighbor, nd)
+        remote = any(d and mesh_shape[a] > 1 for a, d in enumerate(delta))
+        if axes == {0}:
+            group = "klo" if -nd in gr.neighbor else "khi"
+        else:
+            group = "j"
+        plan.append((delta, gr.pos, gr.pos + gr.len, sr.pos,
+                     sr.pos + sr.len, remote, group))
+    plan = PutPlan(plan)
+    plan.ghost_rings = tuple(max(g, 1) for g in decomp.gz[:2])
+    return plan
+
+
+def put_send_ids(plan, mesh_shape, rank: int) -> list[int]:
+    """The ranks ``rank`` sends to, one per remote entry of a
+    :func:`put_plan` in plan order: the ghost at offset ``delta`` copies
+    from the rank at ``+delta``, so ``rank`` sends to ``rank - delta``,
+    periodic (``put_send_ids``, ``bricklib_tpu/comm/exchange.py:497-519``,
+    as plain ints where the reference traces ``lax.axis_index``)."""
+    mesh_shape = tuple(int(m) for m in mesh_shape)
+    lin, coords, strides = mesh_self_coords(mesh_shape, rank)
+    ids = []
+    for delta, *_rest, remote, _group in plan:
+        if not remote:
+            continue
+        tgt = lin
+        for a, d in enumerate(delta):
+            if d:
+                ta = (coords[a] - d + mesh_shape[a]) % mesh_shape[a]
+                tgt += (ta - coords[a]) * int(strides[a])
+        ids.append(int(tgt))
+    return ids
+
+
+def put_plan_copies(plan, mesh_shape) -> list[tuple]:
+    """Every copy of a :func:`put_plan` over the mesh as its senders send
+    it: rank ``q`` copies its rows ``[s0, s1)`` into the ghost rows ``[d0,
+    d1)`` of :func:`put_send_ids`' target (itself for an entry that does
+    not cross ranks); ``(dst_rank, d0, d1, src_rank, s0, s1, group)``."""
+    mesh_shape = tuple(int(m) for m in mesh_shape)
+    out = []
+    for q in range(int(np.prod(mesh_shape))):
+        targets = iter(put_send_ids(plan, mesh_shape, q))
+        for _delta, d0, d1, s0, s1, remote, group in plan:
+            out.append((next(targets) if remote else q, d0, d1, q, s0, s1,
+                        group))
     check_copies(out)
     return out
 

@@ -1,4 +1,4 @@
-// The row copy that kernels K2, K5, K9 and K10 share: one run of n
+// The row copy that kernels K2, K5, K9, K10 and K11 share: one run of n
 // 16-byte vectors, dst[e] = src[e], spread over the x blocks of the
 // launch (the y block picks the run).  Every thread moves 16-byte vectors
 // (uint4), neighbouring threads on neighbouring addresses, several loads
@@ -12,11 +12,13 @@
 #define BT_COPY_THREADS 256
 #define BT_COPY_UNROLL 4
 
-static __device__ __forceinline__ void copy_run(uint4* dst, const uint4* src,
-                                                long long n) {
-    const long long step = (long long)gridDim.x * blockDim.x * BT_COPY_UNROLL;
-    for (long long e0 = (long long)blockIdx.x * blockDim.x * BT_COPY_UNROLL
-                        + threadIdx.x;
+// Part `part` of `nparts` of the run: the threads of one block take
+// 16-byte vectors BT_COPY_UNROLL at a time, the parts interleaved
+static __device__ __forceinline__ void copy_part(uint4* dst, const uint4* src,
+                                                 long long n, long long part,
+                                                 long long nparts) {
+    const long long step = nparts * blockDim.x * BT_COPY_UNROLL;
+    for (long long e0 = part * blockDim.x * BT_COPY_UNROLL + threadIdx.x;
          e0 < n; e0 += step) {
         uint4 v[BT_COPY_UNROLL];
 #pragma unroll
@@ -30,6 +32,12 @@ static __device__ __forceinline__ void copy_run(uint4* dst, const uint4* src,
             if (e < n) dst[e] = v[u];
         }
     }
+}
+
+// The run spread over the x blocks of the launch
+static __device__ __forceinline__ void copy_run(uint4* dst, const uint4* src,
+                                                long long n) {
+    copy_part(dst, src, n, blockIdx.x, gridDim.x);
 }
 
 // x blocks for runs of at most max_len vectors: enough to cover the

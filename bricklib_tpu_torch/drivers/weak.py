@@ -9,8 +9,10 @@ sweeps (kernel K1 on a 3-D domain, K4 on a 4-D one), ghost-inclusive
 except the last, each one launch per card over all the card's ranks.  The
 exchange is ``shift`` (the multi-stage SHIFT exchange: kernel K2 on
 one-rank axes, ``Tensor.copy_`` between ranks), ``put`` (one copy per
-ghost run and rank, K2 for self-copies) or ``shift-remote`` (kernel K9,
-one launch per stage and card).  Axes of one rank go through the grid
+ghost run and rank, K2 for self-copies), ``shift-remote`` (kernel K9,
+one launch per stage and card) or ``fused`` (3-D, ``fuse=1``: kernel
+K11 carries the PUT copies and the first sweep, one launch per card; the
+other ``st_iter - 1`` sweeps are K1's).  Axes of one rank go through the grid
 table unless ``--no-table-periodic`` (the honest configuration on one
 card); the i axis always does.  Reported: GStencil/s over every rank's
 domain and ms per step, the marginal exchange share, the phase
@@ -20,7 +22,7 @@ The port runs ``backend="pencil"`` on 3-D and 4-D domains with the
 innermost mesh axis of one rank, as the reference requires.  A mesh's
 ranks may share a card (``devices=["cuda:0"] * 4``); without ``devices``
 a mesh of several ranks takes one card each and raises where there are
-too few.  ``--exchange fused``, ``--overlap``, ``--profile``,
+too few.  ``--overlap``, ``--profile``,
 ``--f64-validate`` and ``--backend jnp`` raise ``NotImplementedError``
 naming the ROADMAP.md item that brings them.  ``--device`` defaults to
 ``cuda`` and raises where there is none: nothing falls back to the CPU.
@@ -36,12 +38,13 @@ import torch
 
 from ..bench.roofline import chain, copy_storage
 from ..bench.timing import mpi_statistics, time_mpi
+from ..codegen.fused_exchange import pencil_sweep_fusedx
 from ..codegen.jnp_backend import dense_apply
 from ..codegen.pencil_kernel import pencil_sweep
 from ..codegen.pencil_kernel_4d import pencil_sweep_4d
 from ..comm import BrickDecomp, skinlist_by_name
-from ..comm.exchange import (on_card, put_exchange, shift_exchange,
-                             shift_remote_exchange)
+from ..comm.exchange import (on_card, put_exchange, put_plan,
+                             shift_exchange, shift_remote_exchange)
 from ..comm.mesh import rank_views, run_mesh, to_state
 from ..core import compare_arrays, not_ported, random_array
 from ..core.setup import from_bricks as from_bricks_np
@@ -83,13 +86,13 @@ class WeakStep:
 
 
 def _check_supported(dims, mesh_shape, backend, exchange, overlap,
-                     profile_dir, f64_validate):
+                     profile_dir, f64_validate, fuse):
     if backend != "pencil":
         raise not_ported(f"--backend {backend}", "the torch oracle "
                          "(dense_apply/brick_apply)")
     if exchange == "fused":
-        raise not_ported("--exchange fused", "kernel-level exchanges")
-    if exchange not in EXCHANGES:
+        _check_fused(len(dims), fuse, overlap)
+    elif exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}")
     if overlap:
         raise not_ported("--overlap", "remaining pencil_sweep features "
@@ -106,6 +109,12 @@ def _check_supported(dims, mesh_shape, backend, exchange, overlap,
         # as the reference driver: 2-D domains run through api.Problem
         raise ValueError("pencil backend: 3-D or 4-D, innermost axis "
                          "undistributed")
+
+
+def _check_fused(nd: int, fuse: int, overlap: bool = False) -> None:
+    if nd != 3 or fuse != 1 or overlap:
+        raise ValueError("--exchange fused: 3-D pencil backend, fuse=1, no "
+                         "--overlap (the fusion IS the overlap)")
 
 
 def _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
@@ -176,25 +185,42 @@ def _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
         return by_batch[p]
 
     s.moves_data = len(table_axes) < nd
-    ex = EXCHANGES[exchange](dec, mesh, table_axes=table_axes) \
-        if s.moves_data else None
     nsweeps = st_iter // fuse
+    fused = None
+    if exchange == "fused":
+        _check_fused(nd, fuse)
+        # the exchange fused into the first sweep (kernel K11), the
+        # remaining st_iter - 1 sweeps plain (ref: weak.py:193-212)
+        s0 = 0 if st_iter > 1 else 1
+        fused = pencil_sweep_fusedx(
+            sd, kgrid, bdim, dec.nbricks, put_plan(dec, mesh_shape,
+                                                   table_axes),
+            mesh_shape, params, mesh=mesh,
+            **{f"{a}_range": (1, kgrid.shape[i] - 1) if i in table_axes
+               else (s0, kgrid.shape[i] - s0) for i, a in enumerate("kj")})
+        ex = None
+    else:
+        ex = EXCHANGES[exchange](dec, mesh, table_axes=table_axes) \
+            if s.moves_data else None
 
-    def sweeps(state):
+    def sweeps(state, first=0):
         out = []
         for t in state:
             fn, ghost_fn = sweeps_for(t.shape[0])
             d = t.view((-1,) + bdim)
             with on_card(t.device):
-                for it in range(nsweeps):
+                for it in range(first, nsweeps):
                     last = it == nsweeps - 1
                     d = fn(d) if (last or ghost_fn is None) else ghost_fn(d)
             out.append(d.view(t.shape))
         return out
 
     def step(state):
-        """Exchange (in place on ``state``) then the sweeps."""
+        """Exchange (in place on ``state``) then the sweeps; with the
+        fused exchange, K11 is the exchange and the first sweep."""
         s.calls["step"] += 1
+        if fused is not None:
+            return sweeps(fused(state)[0], first=1)
         if ex is not None:
             ex(state)
         return sweeps(state)
@@ -205,7 +231,7 @@ def _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
         s.calls["step_noex"] += 1
         return sweeps(state)
 
-    s.step, s.step_noex, s.exchange = step, step_noex, ex
+    s.step, s.step_noex, s.exchange = step, step_noex, fused or ex
     return s
 
 
@@ -290,7 +316,7 @@ def run(dims=(64, 64, 64), bdim=(8, 8, 128), stencil="mpi7pt",
         mesh_shape = (1,) * len(dims)
     mesh_shape = tuple(int(m) for m in mesh_shape)
     _check_supported(dims, mesh_shape, backend, exchange, overlap,
-                     profile_dir, f64_validate)
+                     profile_dir, f64_validate, fuse)
     s = _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic,
                    skin, device, mesh_shape=mesh_shape, exchange=exchange,
                    devices=devices)
@@ -393,8 +419,9 @@ def main(argv=None):
                    choices=["shift", "put", "shift-remote", "fused"],
                    help="SHIFT multi-stage, PUT (one copy per ghost run), "
                         "shift-remote (kernel K9: one launch per stage and "
-                        "card straight into the neighbours' ghosts); fused "
-                        "is not ported")
+                        "card straight into the neighbours' ghosts), fused "
+                        "(kernel K11: the PUT copies inside the first sweep, "
+                        "3-D, --fuse 1)")
     p.add_argument("--no-table-periodic", action="store_true",
                    help="exchange real ghost bricks even on 1-device "
                         "axes (honest distributed config)")

@@ -24,7 +24,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    every (stage, sign) of the full strong plan), K9 and K10 (the
    remote-copy exchanges, on every stage of the full weak mesh plan with
    four ranks and the strong mesh plan with two, on cuda:0, and across
-   two cards where the machine has them) bit-exact;
+   two cards where the machine has them) bit-exact; K11 (the PUT exchange
+   fused into a fuse=1 sweep) at the full weak mesh plan, with ghosts two
+   bricks deep and with two i tiles per brick, bit-exact against the PUT
+   exchange followed by K1 and against its plain version on the
+   exchanged storage, its output at 1e-5 against the plain version (and
+   across two cards where the machine has them);
 4. drives the port's paths, each validated against a dense twin at 1e-4
    and timed: the honest 512^3 weak step (SHIFT exchange + two fuse=4
    s7pt sweeps, ``drivers.weak``), the 4-D weak step (16x64x128x512,
@@ -34,10 +39,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    weak step at 512^3 per rank on mesh (2, 2, 1), four ranks on cuda:0,
    in its three exchange forms (``shift``, ``put``, ``shift-remote`` over
    K9; validated against a ``torch.roll`` twin of the 1024x1024x512
-   global domain on the card), the strong step on mesh (2, 1, 1), two
+   global domain on the card) and at fuse=1 in ``fused`` (K11 and seven
+   K1 sweeps) and ``put`` form, the strong step on mesh (2, 1, 1), two
    ranks on cuda:0, in ``shift`` (K5) and ``remote`` (K10) form, and
    ``api.Problem``: 16384^2 with bench.py's 9-point box (one fuse=4 K6
-   sweep per step), the wave system of ``examples/wave_2d.py`` at
+   sweep per step), the same per rank on mesh (2, 1) with both ranks on
+   cuda:0, ``examples/distributed_weak.py``'s problem on mesh (2, 2, 1)
+   with the ``shift`` and the ``fused`` exchange (four ranks on cuda:0),
+   the wave system of ``examples/wave_2d.py`` at
    16384^2, small 3-D and 4-D problems over K1 and K4, bench.py's
    125-point leg at 512^3 in three forms (``backend="mxu"`` over K8, the
    pencil backend over K1 at fuse=1 and fuse=2), and the out-of-core pass
@@ -50,7 +59,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    over 67 TFLOP/s, the larger) and, where one PyTorch call computes the
    same function, that call (K1 and K8: one ``nn.Conv3d`` with circular
    padding on the dense 512^3 domain; K7: one valid ``F.conv3d`` on the
-   padded slab; K2, K5, K9, K10: indexed assignments of the same rows).
+   padded slab; K2, K5, K9, K10: indexed assignments of the same rows;
+   K11 has none, and the composition it replaces is timed beside it).
 
 Any failure exits non-zero.  Without a CUDA card, or outside a checkout of
 the repository, it exits non-zero and prints no result.  The line before
@@ -94,6 +104,11 @@ OOC_SLAB, OOC_PADS = (149, 1040, 1152), (1, 8, 64)   # the first slab, padded
 # ranks on one card (the k and j stages cross ranks), and the strong step
 # at 512^3 on mesh (2, 1, 1), two ranks of 8 subdomains on one card
 MESH_WEAK, MESH_STRONG = (2, 2, 1), (2, 1, 1)
+# Problem on a mesh, ranks on cuda:0: the 16384^2 box per rank on mesh
+# (2, 1), and examples/distributed_weak.py:41-54's problem (32x32x128 per
+# rank on mesh (2, 2, 1), mpi7pt, st_iter 4) with the SHIFT and the fused
+# exchange
+MESH_2D, DW_DIMS, DW_ST = (2, 1), (32, 32, 128), 4
 # H100 SXM published peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -494,6 +509,122 @@ def phase_kernels_mesh(err: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def fused_case(dims, bd, rings: int, stencil: str, devices, seed: int):
+    """Kernel K11 on mesh (2, 2, 1) with the ranks on ``devices``: ``(fused
+    fn, PUT exchange, K1 sweeps over a card's ranks by rank count, random
+    state, decomposition)``; i goes through the table, as in the weak
+    step."""
+    from bricklib_tpu_torch.codegen.fused_exchange import pencil_sweep_fusedx
+    from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep
+    from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
+    from bricklib_tpu_torch.comm.exchange import put_exchange, put_plan
+    from bricklib_tpu_torch.comm.mesh import make_domain_mesh
+    from bricklib_tpu_torch.stencils import bench_params
+
+    dec = BrickDecomp(dims=dims, ghost_depth=(rings * bd[0], rings * bd[1],
+                                              0), bdims=bd).initialize(
+        skinlist_by_name("good", 3))
+    mesh = make_domain_mesh(MESH_WEAK, devices=devices)
+    grid = dec.periodic_grid((2,))
+    fn = pencil_sweep_fusedx(stencil, grid, bd, dec.nbricks,
+                             put_plan(dec, MESH_WEAK, (2,)), MESH_WEAK,
+                             bench_params(), mesh=mesh)
+    kr, jr = fn.plan.ranges
+    nb = dec.nbricks
+    sweeps = {p: pencil_sweep(stencil, grid, bd, p * nb, bench_params(),
+                              k_range=kr, j_range=jr, batch=p,
+                              batch_stride=nb)
+              for p in {len(mesh.ranks_on(c)) for c in range(len(mesh.cards))}}
+    state = [rand_cuda((len(mesh.ranks_on(c)), nb) + tuple(bd), seed + c)
+             .to(d) for c, d in enumerate(mesh.cards)]
+    return fn, put_exchange(dec, mesh, (2,)), sweeps, state, dec
+
+
+def composed(put, sweeps, state):
+    """The PUT exchange in place, then K1 over each card's ranks: what K11
+    must equal bit for bit."""
+    put(state)
+    return [sweeps[t.shape[0]](t.view((-1,) + t.shape[2:])).view(t.shape)
+            for t in state]
+
+
+def check_fused(name: str, case, err: dict) -> None:
+    """K11 on one case against the PUT exchange followed by K1 (bit-exact,
+    output and exchanged storage) and against its plain version (the
+    exchanged storage bit-exact, the output at abs-or-rel K1_TOL: the
+    plain sweep does not contract to FMAs)."""
+    import torch
+
+    from bricklib_tpu_torch.codegen.fused_exchange import (brick_rows,
+                                                           fusedx_plain)
+
+    fn, put, sweeps, state, dec = case
+    nb = dec.nbricks
+    a, b, c = ([t.clone() for t in state] for _ in range(3))
+    got, _ = fn(a)
+    want = composed(put, sweeps, b)
+    flats = [t.view((-1,) + t.shape[2:]) for t in c]
+    plain = fusedx_plain(flats, brick_rows(fn.mesh, fn.copies, nb), fn.plan,
+                         [torch.from_numpy(fn.plan.table).to(t.device)
+                          for t in c], nb)
+    for t in a:
+        torch.cuda.synchronize(t.device)
+    w = torch.from_numpy(fn.plan.written_bricks()).to(a[0].device)
+    moved = not all(torch.equal(x, y) for x, y in zip(a, state))
+    same = all(torch.equal(x, y) and torch.equal(x, z)
+               for x, y, z in zip(a, b, c))
+    same_k1 = all(torch.equal(g[:, w.to(g.device)], q[:, w.to(g.device)])
+                  for g, q in zip(got, want))
+    e, ok = 0.0, True
+    for g, q in zip(got, plain):
+        wd = w.to(g.device)
+        good, ee = close(g[:, wd], q.view(g.shape)[:, wd], K1_TOL)
+        ok &= good
+        e = max(e, ee)
+    err["K11"] = max(err.get("K11", 0.0), e)
+    rows = sum(len(cp.rows) for cp in fn.cards)
+    gated = sum(int((cp.items[:, 4] != 0).sum()) for cp in fn.cards)
+    print(f"[3 K11 {name}] {rows} copy chunks, "
+          f"{sum(len(cp.items) for cp in fn.cards)} tiles ({gated} gated), "
+          f"tile {fn.plan.tile()[0]} lanes; storage "
+          f"{'bit-exact' if same else 'MISMATCH'} (PUT and plain), output "
+          f"{'bit-exact' if same_k1 else 'MISMATCH'} against PUT + K1, max "
+          f"abs err {e:.3e} against the plain version (abs-or-rel "
+          f"{K1_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+    if not (moved and same and same_k1 and ok):
+        fail(f"K11 {name} disagrees (moved {moved}, storage {same}, "
+             f"against PUT + K1 {same_k1}, against plain {ok})")
+
+
+def phase_kernels_fused(err: dict) -> None:
+    """K11 at the full weak mesh plan (512^3 per rank, bricks (8, 8, 512),
+    mesh (2, 2, 1), four ranks on cuda:0, s7pt), a small case with ghosts
+    two bricks deep and a small case of two i tiles per brick (the
+    13-point star, taps not unrolled); where the machine has two cards,
+    the full plan across them."""
+    import torch
+
+    small = ((24, 16, 64), (4, 4, 64))
+    for name, args in (
+            (f"512^3 per rank mesh {MESH_WEAK} s7pt",
+             ((N_BIG,) * 3, (BD_K, BD_J, N_BIG), 1, "s7pt")),
+            (f"{small[0]} rings 2 s7pt", small + (2, "s7pt")),
+            ("(24, 16, 256) two i tiles mpi13pt",
+             ((24, 16, 256), (4, 4, 256), 1, "mpi13pt"))):
+        check_fused(f"{name}, one card", fused_case(*args, ["cuda:0"] * 4,
+                                                    70), err)
+        torch.cuda.empty_cache()
+    if torch.cuda.device_count() < 2:
+        print("[3 K11 two cards] skipped: this machine has "
+              f"{torch.cuda.device_count()} card; the NVLink leg is "
+              "unverified")
+        return
+    check_fused("512^3 per rank, two cards", fused_case(
+        (N_BIG,) * 3, (BD_K, BD_J, N_BIG), 1, "s7pt",
+        ["cuda:0", "cuda:0", "cuda:1", "cuda:1"], 80), err)
+    torch.cuda.empty_cache()
+
+
 def stencil_2d(name: str):
     """A 2-D stencil of ``tests/torch_2d_stencils.py`` in the port's eDSL:
     ``box9`` (bench.py's 2-D stencil, bench.py:318-327), ``wave`` (the
@@ -713,6 +844,8 @@ def phase_kernels_dense(err: dict) -> None:
 def counters():
     from bricklib_tpu_torch.bench.roofline import copy_storage
     from bricklib_tpu_torch.codegen.dense_kernel import dense_stencil_kernel
+    from bricklib_tpu_torch.codegen.fused_exchange import (
+        pencil_sweep_fusedx_kernel)
     from bricklib_tpu_torch.codegen.mxu_kernel import pencil_sweep_mxu_kernel
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
     from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
@@ -726,7 +859,8 @@ def counters():
             "K3": copy_storage, "K4": pencil_sweep_4d_kernel,
             "K5": stage_copy, "K6": pencil_sweep_2d_kernel,
             "K7": dense_stencil_kernel, "K8": pencil_sweep_mxu_kernel,
-            "K9": remote_copy, "K10": strong_remote_copy}
+            "K9": remote_copy, "K10": strong_remote_copy,
+            "K11": pencil_sweep_fusedx_kernel}
 
 
 def drive(name: str, run, want_of):
@@ -799,6 +933,18 @@ def phase_paths(card: str) -> dict:
              "K3": r["calls"]["copy"]})
         for ex in ("shift", "put", "shift-remote")
     ] + [
+        (f"weak 512^3 per rank, mesh {MESH_WEAK}, 4 ranks on cuda:0, "
+         "fused fuse=1", lambda: weak_mesh_path("fused", 1),
+         lambda r: {"K11": r["calls"]["step"],
+                    "K1": (ST_ITER - 1) * r["calls"]["step"]
+                    + ST_ITER * r["calls"]["step_noex"],
+                    "K3": r["calls"]["copy"]}),
+        (f"weak 512^3 per rank, mesh {MESH_WEAK}, 4 ranks on cuda:0, "
+         "put fuse=1", lambda: weak_mesh_path("put", 1),
+         lambda r: {"K1": ST_ITER * (r["calls"]["step"]
+                                     + r["calls"]["step_noex"]),
+                    "K3": r["calls"]["copy"]}),
+    ] + [
         (f"strong 512^3, mesh {MESH_STRONG}, 2 ranks on cuda:0, {ex}",
          lambda ex=ex: strong.run(
              dom=(N_BIG,) * 3, sdom=SDOM, bdim=(BD_K, BD_J, N_BIG),
@@ -835,6 +981,19 @@ def phase_paths(card: str) -> dict:
          lambda: problem_125("pencil", 2),
          lambda r: {"K1": r["sweeps"] * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
+        (f"Problem 2-D 16384^2 per rank box9, mesh {MESH_2D}, 2 ranks on "
+         "cuda:0", problem_box9_mesh,
+         lambda r: {"K6": 2 * r["sweeps"] * r["calls"]["step"],
+                    "K3": r["calls"]["copy"]}),
+    ] + [
+        (f"Problem distributed_weak {DW_DIMS} per rank, mesh {MESH_WEAK}, "
+         f"4 ranks on cuda:0, {ex}", lambda ex=ex: problem_dw(ex),
+         lambda r, ex=ex: {"K1": r["sweeps"] * r["calls"]["step"],
+                           **({"K11": r["calls"]["step"]}
+                              if ex == "fused" else {}),
+                           "K3": r["calls"]["copy"]})
+        for ex in ("shift", "fused")
+    ] + [
         ("out-of-core 1024^3 s7pt", ooc_path,
          lambda r: {"K7": r["calls"]["slab"]}),
     ]
@@ -855,14 +1014,14 @@ def weak_mesh_stages():
     return shift_stages(decomposition(N_BIG), MESH_WEAK, (2,))
 
 
-def weak_mesh_path(exchange: str) -> dict:
+def weak_mesh_path(exchange: str, fuse: int = FUSE) -> dict:
     """The weak step at 512^3 per rank on mesh (2, 2, 1), four ranks on
     cuda:0, through ``drivers.weak.run``, validated by
     :func:`weak_roll_validate`."""
     from bricklib_tpu_torch.drivers import weak
 
     return weak.run(dims=(N_BIG,) * 3, bdim=(BD_K, BD_J, N_BIG),
-                    stencil="s7pt", st_iter=ST_ITER, fuse=FUSE,
+                    stencil="s7pt", st_iter=ST_ITER, fuse=fuse,
                     table_periodic=False, backend="pencil",
                     mesh_shape=MESH_WEAK, exchange=exchange,
                     devices=["cuda:0"] * 4, validate=weak_roll_validate)
@@ -918,7 +1077,8 @@ def run_problem(p, init: dict, twin: dict, n_valid: int, n_timed: int):
     got = got if isinstance(got, dict) else {p.fields[0]: got}
     for f, want in twin.items():
         ok, e = close(torch.from_numpy(got[f]).cuda(), want, 1e-4)
-        print(f"[4 Problem {p.dims} field {f}] {n_valid} step(s) against "
+        print(f"[4 Problem {p.dims} mesh {p.eff_mesh} field {f}] {n_valid} "
+              f"step(s) against "
               f"the dense twin: max abs err {e:.3e} (abs-or-rel 1e-4) "
               f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
@@ -938,7 +1098,7 @@ def run_problem(p, init: dict, twin: dict, n_valid: int, n_timed: int):
     t_copy, _ = chain(lambda _x: [copy_storage(d) for d in p._dats][0],
                       p._dats[0], n_timed)
     nbytes = sum(d.numel() * d.element_size() for d in p._dats)
-    elems = int(np.prod(p.dims))
+    elems = int(np.prod(p.dims)) * int(np.prod(p.eff_mesh))
     desc = p.describe()
     print(f"[4 Problem {p.dims}] describe: backend {desc['backend']}, "
           f"bdims {desc['bdims']}, fuse {desc['fuse']}, exchange "
@@ -946,7 +1106,8 @@ def run_problem(p, init: dict, twin: dict, n_valid: int, n_timed: int):
     return {"step": t_step, "gstencil_s": elems * p.st_iter / t_step / 1e9,
             "copy": t_copy, "copy_gbs": 2 * nbytes / t_copy / 1e9,
             "vs_copy_sol": p.st_iter * t_copy / t_step,
-            "sweeps": p.st_iter // p.fuse,
+            # the fused exchange's kernel (K11) is the first sweep
+            "sweeps": (p.st_iter - (desc["exchange"] == "fused")) // p.fuse,
             "calls": {"step": n_valid + 1 + n_timed,
                       "copy": len(p._dats) * (n_timed + 1)}}
 
@@ -962,6 +1123,45 @@ def problem_box9():
     g = rand_cuda((N2, N2), 31)
     twin = {"in": box9_twin(g, ST2)}
     return run_problem(p, {"array": g.cpu().numpy()}, twin, 1, STEPS2)
+
+
+def problem_box9_mesh():
+    """The 2-D path on a mesh: ``Problem`` at 16384^2 per rank with the
+    9-point box on mesh (2, 1), both ranks on cuda:0 (one SHIFT exchange
+    along y, then one fuse=4 K6 sweep per rank and step), one step held
+    against the dense twin of the 32768 x 16384 global domain."""
+    from bricklib_tpu_torch.api import Problem
+
+    p = Problem(dims=(N2, N2), stencil=stencil_2d("box9"), st_iter=ST2,
+                mesh=MESH_2D, devices=["cuda:0"] * 2)
+    if (p.backend, p.bdims, p.fuse) != ("pencil", (BY2, N2), FUSE2):
+        fail(f"Problem 2-D mesh resolved to {p.backend} {p.bdims} fuse "
+             f"{p.fuse}")
+    g = rand_cuda((MESH_2D[0] * N2, N2), 36)
+    twin = {"in": box9_twin(g, ST2)}
+    return run_problem(p, {"array": g.cpu().numpy()}, twin, 1, STEPS2)
+
+
+def problem_dw(exchange: str):
+    """``examples/distributed_weak.py:41-54``'s problem as written (mpi7pt,
+    32x32x128 per rank on mesh (2, 2, 1), bricks (8, 8, 128), st_iter 4,
+    its seeded field), four ranks on cuda:0, with ``exchange``; one step
+    held against a ``torch.roll`` twin of the global domain."""
+    import numpy as np
+    import torch
+
+    from bricklib_tpu_torch.api import Problem
+
+    p = Problem(dims=DW_DIMS, mesh=MESH_WEAK, stencil="mpi7pt",
+                bdims=(8, 8, DW_DIMS[2]), backend="pencil", st_iter=DW_ST,
+                exchange=exchange, devices=["cuda:0"] * 4)
+    if p.describe()["exchange"] != exchange:
+        fail(f"distributed_weak resolved to {p.describe()['exchange']}")
+    gshape = tuple(m * d for m, d in zip(MESH_WEAK, DW_DIMS))
+    field = np.random.default_rng(1).random(gshape, dtype=np.float32)
+    twin = {p.gname: roll_twin(torch.from_numpy(field).cuda(), p.sdef,
+                               p.params, DW_ST)}
+    return run_problem(p, {"array": field}, twin, 1, 25)
 
 
 def problem_wave():
@@ -1360,7 +1560,45 @@ def phase_times_mesh(card: str) -> dict:
                     f"{nrows} brick rows of {brick} B", out[key])
         del state, flats, flat, lib
         torch.cuda.empty_cache()
+    out.update(phase_times_fused(card))
     return out
+
+
+def phase_times_fused(card: str) -> dict:
+    """K11 at the full weak mesh plan (four ranks of 512^3 on cuda:0): the
+    kernel, its plain version, the bound (the sweep's bricks read once and
+    written once, the copied rows read and written once; 2 operations per
+    tap and output) and, where the library call would stand, the
+    composition it replaces: the PUT exchange then the ghost-inclusive
+    K1."""
+    import dataclasses
+
+    import torch
+
+    from bricklib_tpu_torch.codegen.fused_exchange import (brick_rows,
+                                                           fusedx_plain)
+
+    fn, put, sweeps, state, dec = fused_case(
+        (N_BIG,) * 3, (BD_K, BD_J, N_BIG), 1, "s7pt", ["cuda:0"] * 4, 90)
+    nb = dec.nbricks
+    flats = [t.view((-1,) + t.shape[2:]) for t in state]
+    rows = brick_rows(fn.mesh, fn.copies, nb)
+    tables = [torch.from_numpy(fn.plan.table).cuda()]
+    plan4 = dataclasses.replace(fn.plan, batch=4, batch_stride=nb)
+    nbytes, flops = sweep_work(plan4)
+    brick = flats[0][0].numel() * flats[0].element_size()
+    moved = sum(r[-1] for r in rows)
+    r = row(cuda_ms(lambda: fn(state), 20),
+            cuda_ms(lambda: fusedx_plain(flats, rows, fn.plan, tables, nb),
+                    3),
+            nbytes + 2 * moved * brick, flops, None)
+    r["composed_ms"] = cuda_ms(lambda: composed(put, sweeps, state), 20)
+    print_times(card, "K11", f"one launch, 4 ranks of 512^3, {moved} brick "
+                "rows copied (library call: none; the PUT exchange + K1 it "
+                f"replaces {r['composed_ms']:.3f} ms)", r)
+    del fn, state, flats
+    torch.cuda.empty_cache()
+    return {"K11": r}
 
 
 def conv_of(plan, fuse: int):
@@ -1624,6 +1862,7 @@ def main() -> None:
     phase_kernels_4d(err)
     phase_kernels_strong(err)
     phase_kernels_mesh(err)
+    phase_kernels_fused(err)
     phase_kernels_2d(err)
     phase_kernels_mxu(err)
     phase_kernels_dense(err)
@@ -1667,9 +1906,14 @@ def main() -> None:
         ("K10", {"name": "K10 strong_remote_copy", "route": "cuda",
                  "source": src + "remote_copy.cu",
                  "replaces": "bricklib_tpu/comm/strong.py:195"}),
+        ("K11", {"name": "K11 pencil_sweep_fusedx", "route": "cuda",
+                 "source": src + "fused_exchange.cu",
+                 "replaces": "bricklib_tpu/codegen/fused_exchange.py:56"}),
     ]
     for k, entry in kernels:
-        entry.update(launches=launches[k], max_abs_err=err[k], **times[k])
+        entry.update(launches=launches[k], max_abs_err=err[k],
+                     **{f: times[k][f] for f in ("ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")})
     print(json.dumps({"kernels": [e for _k, e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,10 @@ of a card), K6 and K8 are compared on the bricks they write, K7 on the
 whole padded array, at abs-or-rel 1e-5 (FMA contraction and summation
 order); K2, K3, K5, K9 and K10 only copy, so they must be bit-exact.  The
 remote-copy kernels run with four (K9) and two (K10) ranks on one card,
-and across two cards where the machine has them.
+and across two cards where the machine has them.  K11 (the PUT exchange
+fused into the sweep) must equal the PUT exchange followed by K1 bit for
+bit, and its plain version at abs-or-rel 1e-5 (bit for bit on the
+exchanged storage), on four ranks of one card and across two cards.
 """
 
 import numpy as np
@@ -21,6 +24,8 @@ import torch
 from bricklib_tpu_torch import st
 from bricklib_tpu_torch.api import Problem
 from bricklib_tpu_torch.bench.roofline import copy_storage, copy_storage_plain
+from bricklib_tpu_torch.codegen.fused_exchange import (
+    brick_rows, fusedx_plain, pencil_sweep_fusedx, pencil_sweep_fusedx_kernel)
 from bricklib_tpu_torch.codegen.dense_kernel import (dense_stencil,
                                                      dense_stencil_kernel,
                                                      dense_stencil_plain)
@@ -37,7 +42,8 @@ from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
 from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu_torch.comm.exchange import (copy_intervals,
                                               copy_intervals_plain,
-                                              copy_rows_plain, remote_copy,
+                                              copy_rows_plain, put_exchange,
+                                              put_plan, remote_copy,
                                               rows_table, shift_exchange,
                                               shift_remote_exchange)
 from bricklib_tpu_torch.comm.mesh import make_domain_mesh, rank_views
@@ -458,3 +464,91 @@ def test_strong_mesh_step_on_card_validates(cuda, exchange):
     step, state, plan, g = strong.build_step(**kw, devices=[cuda] * 2)
     assert strong.validate_step(step, state, plan, g, "s7pt", 4, step.mesh)
     assert len(rank_views(step.mesh, state)) == 2
+
+
+def _fused_case(devices, rings=1, ti_narrow=False):
+    """A small (2, 2, 1) mesh for K11: (fused fn, PUT exchange, K1 sweep
+    over each card's ranks, random state).  ``ti_narrow``: bricks 256
+    wide, two i tiles of 128, and the 13-point star (taps not unrolled)."""
+    bd = (4, 4, 256) if ti_narrow else (4, 4, 32)
+    gz = (4 * rings, 4 * rings, 0)
+    dec = BrickDecomp(dims=(24, 16, bd[2]), ghost_depth=gz,
+                      bdims=bd).initialize(skinlist_by_name("good", 3))
+    mesh = make_domain_mesh((2, 2, 1), devices=devices)
+    plan = put_plan(dec, (2, 2, 1), (2,))
+    grid = dec.periodic_grid((2,))
+    name = "mpi13pt" if ti_narrow else "s7pt"
+    fn = pencil_sweep_fusedx(name, grid, bd, dec.nbricks, plan, (2, 2, 1),
+                             bench_params(), mesh=mesh)
+    (kr, jr) = fn.plan.ranges
+    sweeps = {p: pencil_sweep(name, grid, bd, p * dec.nbricks,
+                              bench_params(), k_range=kr, j_range=jr,
+                              batch=p, batch_stride=dec.nbricks)
+              for p in {len(mesh.ranks_on(c)) for c in range(len(mesh.cards))}}
+    gen = torch.Generator().manual_seed(12 + rings)
+    state = [torch.rand((len(mesh.ranks_on(c)), dec.nbricks) + bd,
+                        generator=gen).to(d)
+             for c, d in enumerate(mesh.cards)]
+    return fn, put_exchange(dec, mesh, (2,)), sweeps, state, dec
+
+
+def _check_fused(fn, put, sweeps, state, dec):
+    b = [t.clone() for t in state]
+    c = [t.clone() for t in state]
+    before = pencil_sweep_fusedx_kernel.launches
+    for _ in range(2):                 # a second epoch reuses the counters
+        a = [t.clone() for t in state]
+        got, a2 = fn(a)
+        assert a2 is a
+    assert pencil_sweep_fusedx_kernel.launches == before + 2 * len(a)
+    put(b)                             # PUT, then K1 over each card's ranks
+    want = [sweeps[t.shape[0]](t.view((-1,) + t.shape[2:])).view(t.shape)
+            for t in b]
+    flats = [t.view((-1,) + t.shape[2:]) for t in c]
+    plain = fusedx_plain(flats, brick_rows(fn.mesh, fn.copies, dec.nbricks),
+                         fn.plan,
+                         [torch.from_numpy(fn.plan.table).to(t.device)
+                          for t in c], dec.nbricks)
+    torch.cuda.synchronize()
+    w = fn.plan.written_bricks()
+    for x, y, z, p, q in zip(a, b, c, got, want):
+        assert torch.equal(x, y) and torch.equal(x, z)    # the exchange
+        assert torch.equal(p[:, w], q[:, w])              # K11 == PUT + K1
+    for p, q in zip(got, plain):
+        assert compare_arrays(p.view(q.shape).cpu().numpy()[w],
+                              q.cpu().numpy()[w], 1e-5)
+
+
+@pytest.mark.parametrize("rings,ti_narrow", [(1, False), (2, False),
+                                             (1, True)],
+                         ids=["rings1", "rings2", "narrow-i-tile"])
+def test_fused_exchange_kernel_matches_put_and_k1(cuda, rings, ti_narrow):
+    _check_fused(*_fused_case([cuda] * 4, rings, ti_narrow))
+
+
+def test_fused_exchange_kernel_across_two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    fn, put, sweeps, state, dec = _fused_case(
+        ["cuda:0", "cuda:0", "cuda:1", "cuda:1"])
+    assert fn.waits[0] == [(0, 1), (1, 0)]
+    _check_fused(fn, put, sweeps, state, dec)
+
+
+def test_fused_weak_step_and_problem_on_card_match_cpu(cuda):
+    kw = dict(dims=(32, 16, 32), bdim=(8, 8, 32), stencil="s7pt", st_iter=4,
+              fuse=1, table_periodic=False, mesh_shape=(2, 2, 1),
+              exchange="fused")
+    step_c, st_c, dec = weak.build_step(**kw, devices=[cuda] * 4)
+    step_h, st_h, _ = weak.build_step(**kw, device="cpu")
+    own = dec.owned_mask()
+    assert compare_arrays(step_c(st_c)[0].cpu().numpy()[:, own],
+                          step_h(st_h)[0].numpy()[:, own], 1e-5)
+    pk = dict(dims=(32, 16, 32), stencil="mpi7pt", mesh=(2, 2, 1),
+              st_iter=2)
+    for ex in ("shift", "fused"):
+        got = Problem(devices=[cuda] * 4, exchange=ex, **pk).init(
+            seed=4).step(2).result()
+        want = Problem(device="cpu", exchange=ex, **pk).init(
+            seed=4).step(2).result()
+        assert compare_arrays(got, want, 1e-5) and np.isfinite(got).all()

@@ -38,6 +38,8 @@ from bricklib_tpu_torch.bench.roofline import copy_storage
 from bricklib_tpu_torch.api import Problem
 from bricklib_tpu_torch.codegen.dense_kernel import dense_stencil_kernel
 from bricklib_tpu_torch.codegen.mxu_kernel import pencil_sweep_mxu_kernel
+from bricklib_tpu_torch.codegen.fused_exchange import (
+    pencil_sweep_fusedx, pencil_sweep_fusedx_kernel)
 from bricklib_tpu_torch.ooc import ooc_sweep
 from bricklib_tpu_torch.st import ConstRef, Grid, Index, load_stencil_module
 from bricklib_tpu_torch.stencils import bench_params
@@ -64,6 +66,14 @@ res = strong.run(dom=(32, 32, 32), sdom=(8, 16, 32), bdim=(4, 4, 32),
                  stencil="s7pt", st_iter=4, fuse=2, mesh_shape=(2, 1, 1),
                  exchange="remote", validate=True, iters=1, device="cpu")
 assert res["ranks"] == 2
+res = weak.run(dims=(32, 16, 32), bdim=(8, 8, 32), stencil="s7pt",
+               st_iter=2, fuse=1, table_periodic=False, mesh_shape=(2, 2, 1),
+               exchange="fused", validate=True, iters=1, device="cpu")
+assert res["ranks"] == 4
+for ex in ("shift", "fused"):
+    p = Problem(dims=(32, 16, 32), stencil="mpi7pt", mesh=(2, 2, 1),
+                st_iter=2, exchange=ex, device="cpu")
+    assert p.init(seed=1).step(1).result().shape == (64, 32, 32)
 i, j = Index(0), Index(1)
 g, o = Grid("in", 2), Grid("out", 2)
 o(i, j).assign(ConstRef("0.6") * g(i, j)
@@ -87,7 +97,8 @@ assert (pencil_sweep_kernel.launches, pencil_sweep_2d_kernel.launches,
         stage_copy.launches, copy_storage.launches,
         pencil_sweep_mxu_kernel.launches,
         dense_stencil_kernel.launches, remote_copy.launches,
-        strong_remote_copy.launches) == (0,) * 10
+        strong_remote_copy.launches,
+        pencil_sweep_fusedx_kernel.launches) == (0,) * 11
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules
@@ -155,7 +166,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert {p.name for p in _build.sources()} == {
         "brick_copy.cu", "dense_stencil.cu", "pencil_sweep.cu",
         "pencil_sweep_2d.cu", "pencil_sweep_4d.cu", "pencil_sweep_mxu.cu",
-        "remote_copy.cu"}
+        "remote_copy.cu", "fused_exchange.cu"}
     for name, argtypes in _build.SIGNATURES.items():
         assert name.startswith("bt_") and argtypes[-1] is ctypes.c_void_p
 

@@ -91,15 +91,15 @@ def _port(which, stacked, dec, mesh_shape, **kw):
     return np.stack([v.numpy() for v in rank_views(mesh, state)])
 
 
-def _blocks(dims, bd, mesh_shape, seed):
-    """Per rank (ravel order), its block with ghosts cut from the global
-    periodic domain."""
+def _blocks(dims, gz, mesh_shape, seed):
+    """Per rank (ravel order), its block with ghosts ``gz`` deep cut from
+    the global periodic domain."""
     gshape = tuple(m * d for m, d in zip(mesh_shape, dims))
     g = random_array(gshape, np.float32, seed)
     blocks = []
     for c in np.ndindex(*mesh_shape):
-        idx = [np.arange(c[a] * dims[a] - bd[a],
-                         c[a] * dims[a] + dims[a] + bd[a]) % gshape[a]
+        idx = [np.arange(c[a] * dims[a] - gz[a],
+                         c[a] * dims[a] + dims[a] + gz[a]) % gshape[a]
                for a in range(len(dims))]
         blocks.append(g[np.ix_(*idx)])
     return blocks
@@ -174,22 +174,39 @@ def test_remote_exchange_4d():
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 2, 2), (2, 2, 1), (2, 1, 2),
-                                        (1, 2, 2), (4, 2, 1), (1, 1, 8)])
-def test_exchange_geometry_fuzz(mesh_shape):
+@pytest.mark.parametrize("mesh_shape,deep", [
+    ((2, 2, 2), None), ((2, 2, 1), None), ((2, 1, 2), None),
+    ((1, 2, 2), None), ((4, 2, 1), None), ((1, 1, 8), None),
+    # 2-D meshes (Problem rank 2 on a mesh stands on them)
+    ((2, 1), None), ((4, 1), None), ((2, 2), None), ((8, 1), None),
+    # ghosts two bricks deep: (bricks, ghost depth)
+    ((2, 2, 1), ((8, 8, 32), (16, 8, 0))),
+    ((2, 2, 1), ((4, 4, 32), (8, 8, 0)))],
+    ids=["mesh_shape0", "mesh_shape1", "mesh_shape2", "mesh_shape3",
+         "mesh_shape4", "mesh_shape5", "2d-2x1", "2d-4x1", "2d-2x2",
+         "2d-8x1", "deep-16x8x0", "deep-8x8x0"])
+def test_exchange_geometry_fuzz(mesh_shape, deep):
     """``tests/test_exchange.py:285-337`` over each of its meshes (a
-    size-4 and a size-8 axis among them): a seeded geometry (brick fold,
-    skin ordering) in all three forms, bit-exact against the reference's
-    PUT or SHIFT exchange and against the global-wrap ground truth."""
+    size-4 and a size-8 axis among them), 2-D meshes, and 3-D ghosts two
+    bricks deep: a seeded geometry (brick fold, skin ordering) in all
+    three forms, bit-exact against the reference's PUT or SHIFT exchange
+    and against the global-wrap ground truth."""
     from bricklib_tpu_torch.core.setup import from_bricks
 
     rng = np.random.default_rng(500 + sum(mesh_shape) * 7 + mesh_shape[0])
-    bd = (int(rng.choice([2, 4])), int(rng.choice([2, 4])),
-          int(rng.choice([4, 8])))
-    dims = tuple(int(rng.integers(2, 4)) * b for b in bd)
-    order = str(rng.choice(["good", "normal", "bad"]))
-    ref, dec = _decs(dims, bd, bd, skin=order)
-    blocks = _blocks(dims, bd, mesh_shape, int(rng.integers(100)))
+    if deep is not None:
+        bd, gz = deep
+        dims = (2 * gz[0], 2 * gz[1], bd[2])
+    else:
+        bd = tuple(int(rng.choice([2, 4])) for _ in mesh_shape[:-1]) + (
+            int(rng.choice([4, 8])),)
+        dims = tuple(int(rng.integers(2, 4)) * b for b in bd)
+        gz = bd
+    # ranks other than 3 have the lexicographic order alone
+    order = (str(rng.choice(["good", "normal", "bad"]))
+             if len(mesh_shape) == 3 else "lex")
+    ref, dec = _decs(dims, bd, gz, skin=order)
+    blocks = _blocks(dims, gz, mesh_shape, int(rng.integers(100)))
     stacked = _storage(dec, blocks)
     for which in ("put", "shift", "shift-remote"):
         got = _port(which, stacked, dec, mesh_shape)

@@ -179,23 +179,45 @@ def _sys3(st):
     return st.load_stencil_module({"STENCIL": [ou, ov]})
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(dims=(16, 16), mesh=(2, 1)), "multi-GPU"),
-    (dict(dims=(16, 16, 32), slices=2), "multi-GPU"),
-    (dict(dims=(16, 16, 32), exchange="fused"), "kernel-level exchanges"),
-    (dict(dims=(16, 16), backend="jnp"), "torch oracle"),
-    (dict(dims=(16, 16, 32), backend="mxu", mesh=(2, 1, 1)), "multi-GPU"),
+@pytest.mark.parametrize("kw,err,item", [
+    # the mesh, slices and fused cases of earlier slices now run (in
+    # tests/test_torch_problem_mesh.py); these are the reference's refusals
+    # of them
+    (dict(dims=(16, 16), mesh=(2, 1), exchange="fused"), ValueError,
+     "3-D pencil only"),
+    (dict(dims=(16, 16, 32), stencil="s7pt", slices=2, exchange="fused"),
+     ValueError, "multi-slice meshes use"),
+    (dict(dims=(16, 16, 32), stencil="s7pt", exchange="fused",
+          backend="mxu"), ValueError, "uses exchange='shift'"),
+    (dict(dims=(16, 16), backend="jnp"), NotImplementedError,
+     "torch oracle"),
+    (dict(dims=(16, 16, 32), stencil="s7pt", backend="mxu", mesh=(2, 1, 1),
+          st_iter=9), ValueError, "exceeds ghost depth"),
     (dict(dims=(16, 16, 32), stencil=_aux3(port_st), field="in"),
-     "remaining pencil_sweep features"),
+     NotImplementedError, "remaining pencil_sweep features"),
     (dict(dims=(16, 16, 32), stencil=_sys3(port_st), field=("u", "v")),
-     "remaining pencil_sweep features"),
-    (dict(dims=(16, 16), dtype=np.float16), "remaining pencil_sweep"),
-])
-def test_unported_options_raise_naming_their_item(kw, item):
+     NotImplementedError, "remaining pencil_sweep features"),
+    (dict(dims=(16, 16), dtype=np.float16), NotImplementedError,
+     "remaining pencil_sweep"),
+], ids=["kw0-multi-GPU", "kw1-multi-GPU", "kw2-kernel-level exchanges",
+        "kw3-torch oracle", "kw4-multi-GPU",
+        "kw5-remaining pencil_sweep features",
+        "kw6-remaining pencil_sweep features", "kw7-remaining pencil_sweep"])
+def test_unported_options_raise_naming_their_item(kw, err, item):
+    """What ``Problem`` refuses: the options of later slices name their
+    ROADMAP item; the reference's own refusals raise its error, word for
+    word."""
     args = dict(stencil=box9(port_st), device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=item) as port:
         Problem(**args)
+    if err is ValueError:
+        ref_args = dict(args, stencil=args["stencil"] if isinstance(
+            args["stencil"], str) else box9(ref_st))
+        del ref_args["device"]
+        with pytest.raises(ValueError) as ref:
+            RefProblem(**ref_args)
+        assert str(port.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("method,item", [

@@ -109,9 +109,12 @@ def test_cuda_without_a_card_raises():
     # a mesh of more ranks than cards, with no devices given
     (dict(exchange="put", mesh_shape=(64, 1, 1), device="cuda"), ValueError,
      "CUDA devices"),
-    (dict(exchange="fused", mesh_shape=(2, 1, 1)), NotImplementedError,
-     "kernel-level exchanges"),
-    (dict(exchange="fused"), NotImplementedError, "kernel-level exchanges"),
+    # the fused exchange runs (tests/test_torch_fused_exchange.py) at
+    # fuse=1 on 3-D domains; the reference refuses it otherwise
+    (dict(exchange="fused", mesh_shape=(2, 1, 1)), ValueError,
+     "fuse=1, no --overlap"),
+    (dict(exchange="fused", fuse=1, overlap=True), ValueError,
+     "fuse=1, no --overlap"),
     (dict(overlap=True), NotImplementedError, "pencil_sweep features"),
     (dict(profile_dir="trace"), NotImplementedError, "the rest"),
     (dict(f64_validate=True), NotImplementedError, "torch oracle"),
@@ -120,10 +123,12 @@ def test_cuda_without_a_card_raises():
         "kw3-kernel-level exchanges", "kw4-pencil_sweep features",
         "kw5-the rest", "kw6-torch oracle", "kw7-multi-GPU"])
 def test_unported_options_raise(kw, err, item):
-    """What the weak driver still refuses: the options of later slices,
-    and a mesh of more ranks than cards when no devices are given (the
-    PUT and mesh cases of earlier slices now run, in
-    ``tests/test_torch_mesh_steps.py``)."""
+    """What the weak driver still refuses: the options of later slices, a
+    mesh of more ranks than cards when no devices are given, and the
+    fused exchange where the reference refuses it (the PUT, mesh and
+    fused cases of earlier slices now run, in
+    ``tests/test_torch_mesh_steps.py`` and
+    ``tests/test_torch_fused_exchange.py``)."""
     args = dict(STEP, backend="pencil", device="cpu")
     args.update(kw)
     with pytest.raises(err, match=item):
