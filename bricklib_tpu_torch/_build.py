@@ -47,6 +47,8 @@ SIGNATURES = {
     "bt_pencil_sweep_mxu": [_VOID, _VOID, _VOID] + [_INT] * 16
                            + [_VOID, _INT] + [_VOID] * 4
                            + [_INT, _INT, _VOID],
+    "bt_pencil_sweep_nd": [_VOID, _INT, _VOID, _VOID, _INT] + [_VOID] * 5
+                          + [_INT, _INT, _VOID],
     "bt_dense_stencil": [_VOID, _VOID] + [_INT] * 14 + [_VOID] * 5
                         + [_INT, _INT, _VOID],
     "bt_copy_intervals": [_VOID, _VOID, _INT, _I64, _VOID],

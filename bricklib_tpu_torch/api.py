@@ -8,12 +8,20 @@ back (port of ``bricklib_tpu/api.py``).
     p.step(5)                     # 5 steps of st_iter iterations each
     out = p.result()              # dense numpy array (owned region)
 
-The port runs the pencil backend: rank 2 over kernel K6
+The pencil backend runs rank 2 over kernel K6
 (``codegen.pencil_kernel_2d``: single fields, aux fields and stencil
 systems), ranks 3 and 4 over kernels K1 and K4 (single-field,
 single-input stencils); ``backend="mxu"`` runs a single-field linear
 3-D stencil over flat-pencil storage ``(nbricks, BK, BJ*BI)``, one
 kernel K8 sweep (``codegen.mxu_kernel``) per iteration.
+``backend="jnp"`` is the torch oracle (``codegen.jnp_backend``) at any
+rank and on any mesh, with aux fields and systems: bricks a whole brick
+deep in ghosts on every axis, i included, one SHIFT exchange of real
+ghost bricks per step on every rank count (kernel K2 for the self-copies
+of one-rank axes), then ``st_iter`` ghost-inclusive ``brick_apply``
+iterations, the last over the owned bricks only.  ``"auto"`` picks it
+where the reference does: rank 5 and above, ``mesh[-1] > 1``, and 2-D or
+4-D bricks that do not span the row.
 
 ``dims`` are per rank, as in the reference.  On one rank every axis is
 periodic through the grid table and nothing is exchanged.  On a mesh
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from .codegen.evaluate import resolve_const_from_params
+from .codegen.jnp_backend import brick_apply, offset_stack
 from .codegen.ir import (PASS_FUSE_MAX, StencilIR, fold_linear,
                          generic_pass_estimate, vpu_pass_estimate)
 from .codegen.fused_exchange import pencil_sweep_fusedx
@@ -57,7 +66,6 @@ from .core.setup import from_bricks, to_bricks
 from .st.loader import StencilDef
 from .stencils import bench_params, stencil_by_name
 
-ORACLE_ITEM = "the torch oracle (dense_apply/brick_apply)"
 AUTODIFF_ITEM = "3-D autodiff"
 RANKS_ITEM = "ranks 2/4 (autodiff)"
 REST_ITEM = "the rest"
@@ -171,9 +179,7 @@ class Problem:
         if backend == "pencil" and nd not in (2, 3, 4):
             raise ValueError("pencil backend is 2-D/3-D/4-D; use "
                              "backend='jnp' for other ranks")
-        if backend == "jnp":
-            raise not_ported("backend='jnp'", ORACLE_ITEM)
-        if backend not in ("pencil", "mxu"):
+        if backend not in ("pencil", "mxu", "jnp"):
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         if self.schedule and backend != "pencil":
@@ -187,7 +193,10 @@ class Problem:
                                  "single-input 3-D stencils")
             if exchange != "shift":
                 raise ValueError("backend='mxu' uses exchange='shift'")
-        if bdims is None:
+        if bdims is None and backend == "jnp":
+            bdims = tuple(min(8, d) for d in self.dims[:-1]) + (
+                min(128, self.dims[-1]),)
+        elif bdims is None:
             by2 = (32 if nd == 2 and self.dims[0] % 32 == 0
                    and self.dims[0] >= 128 else 8)
             bdims = ((by2, self.dims[1]) if nd == 2
@@ -195,7 +204,9 @@ class Problem:
                      else (2, 8, 8, self.dims[3]))
         self.bdims = tuple(int(b) for b in bdims)
         if ghost is None:
-            ghost = self.bdims[:-1] + (0,)
+            # the oracle's ghost is a whole brick on every axis, i included
+            ghost = (self.bdims if backend == "jnp"
+                     else self.bdims[:-1] + (0,))
         self.ghost = tuple(int(g) for g in ghost)
 
         if exchange not in ("shift", "fused"):
@@ -213,7 +224,8 @@ class Problem:
         if np.dtype(dtype) != np.float32:
             raise not_ported(f"dtype {np.dtype(dtype).name}", FEATURES_ITEM)
         self.dtype = np.dtype(dtype)
-        if nd in (3, 4) and (nfld > 1 or self.aux_names):
+        if (backend == "pencil" and nd in (3, 4)
+                and (nfld > 1 or self.aux_names)):
             raise not_ported(f"aux fields and stencil systems on rank {nd}",
                              FEATURES_ITEM)
         self.dec = BrickDecomp(dims=self.dims, ghost_depth=self.ghost,
@@ -231,6 +243,12 @@ class Problem:
                   for lo_r, hi_r in (s.radius() for s in sdefs))
         dec, msh, bd = self.dec, self.eff_mesh, self.bdims
         nb = dec.nbricks
+        self._states = None
+        self._aux_states = ()
+        if backend == "jnp":
+            self._make_mesh(device, devices, flat=False)
+            self._oracle(rad)
+            return
         _sch = self.schedule
         _sch_fuse = _sch.get("fuse")
         _sch_fuse = None if _sch_fuse is None else int(_sch_fuse)
@@ -359,18 +377,7 @@ class Problem:
                 (info["tile_w"], info["tile_i"],
                  info["smem_bytes"]) = tile_4d(plan)
         self.fuse = fuse
-
-        n = int(np.prod(msh))
-        if devices is None:
-            self.device = require_device(device)
-            if self.device.type == "cpu" or n == 1:
-                devices = [self.device] * n
-        dmesh = make_domain_mesh(msh, devices=devices)
-        self.device = dmesh.devices[0]
-        # the fused exchange addresses ranks by their linear id over one
-        # flat axis, placement-identical to the domain mesh
-        self.mesh = (Mesh((n,), ("dev",), dmesh.devices) if fused_x
-                     else dmesh)
+        self._make_mesh(device, devices, flat=fused_x)
         exchange_fn = fusedx = None
         if fused_x:
             fusedx = pencil_sweep_fusedx(
@@ -437,8 +444,80 @@ class Problem:
                          else exchange if distributed else "table"),
             "table_axes": list(table_axes), "kernels": [info],
         }
-        self._states = None
-        self._aux_states = ()
+
+    def _make_mesh(self, device, devices, flat: bool) -> None:
+        """Place the ranks of ``eff_mesh``: ``devices``, one per rank, or
+        ``device`` for a one-rank problem (and every rank of a CPU one).
+        ``flat``: one flat axis of ranks, placement-identical to the
+        domain mesh (the fused exchange addresses ranks by linear id)."""
+        n = self._ndev
+        if devices is None:
+            self.device = require_device(device)
+            if self.device.type == "cpu" or n == 1:
+                devices = [self.device] * n
+        dmesh = make_domain_mesh(self.eff_mesh, devices=devices)
+        self.device = dmesh.devices[0]
+        self.mesh = Mesh((n,), ("dev",), dmesh.devices) if flat else dmesh
+
+    def _oracle(self, rad: int) -> None:
+        """The torch oracle's step (reference ``api.py:636-682``): one
+        SHIFT exchange over every axis, then ``st_iter`` ghost-inclusive
+        ``brick_apply`` iterations, the last over the owned bricks only
+        (the others keep their exchanged or computed values).  The ranks
+        of a card run as one ``brick_apply`` over their stacked storage,
+        the adjacency of rank ``s`` offset by ``s * nbricks`` (each rank's
+        off-grid reads hit its own brick 0), uploaded once per card."""
+        if (self.st_iter > 1
+                and self.st_iter * rad > min(
+                    (g for g in self.ghost if g), default=0)):
+            raise ValueError("st_iter x radius exceeds ghost depth")
+        dec, bd, nb = self.dec, self.bdims, self.dec.nbricks
+        exchange_fn = shift_exchange(dec, self.mesh)
+        owned = np.arange(1, dec.sep_pos[1])
+        per_card: dict = {}
+
+        def tables(t):
+            """(adjacency, owned rows) of the ``t.shape[0]`` ranks stacked
+            in ``t``, on its device."""
+            key = (t.device, t.shape[0])
+            if key not in per_card:
+                per_card[key] = tuple(
+                    torch.from_numpy(offset_stack(a, t.shape[0], nb)).to(
+                        t.device) for a in (dec.info.adj, owned))
+            return per_card[key]
+
+        def one(states, auxv):
+            for st in states:
+                exchange_fn(st)
+            out = [[] for _ in states]
+            for c, t0 in enumerate(states[0]):
+                adj, rows = tables(t0)
+                views = [st[c].view((-1,) + bd) for st in states]
+                avs = {n_: a[c].view((-1,) + bd)
+                       for n_, a in zip(self.aux_names, auxv)}
+                with on_card(t0.device):
+                    for it in range(self.st_iter):
+                        vs = dict(avs)
+                        vs.update(zip(self.fields, views))
+                        ins = [{n_: vs[n_] for n_ in s_.inputs}
+                               for s_ in self.sdefs]
+                        if it < self.st_iter - 1:
+                            views = [brick_apply(s_, i_, adj, self.params)
+                                     for s_, i_ in zip(self.sdefs, ins)]
+                            continue
+                        outs = [brick_apply(s_, i_, adj, self.params,
+                                            rows=rows)
+                                for s_, i_ in zip(self.sdefs, ins)]
+                        for v, o in zip(views, outs):
+                            v.index_copy_(0, rows, o)
+                for f, v in enumerate(views):
+                    out[f].append(v.view(t0.shape))
+            return out
+
+        self.fuse = 1
+        self._one = one
+        self._exec_plan = {"backend": "jnp", "fuse": 1, "exchange": "shift",
+                           "kernels": []}
 
     # ------------------------------------------------------------------
     def differentiable_step(self, *args, **kw):

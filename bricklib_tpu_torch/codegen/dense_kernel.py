@@ -32,9 +32,9 @@ import torch
 
 from .. import _build
 from ..core import not_ported
-from .evaluate import resolve_const_from_params
+from .evaluate import TorchNS, resolve_const_from_params
 from .jnp_backend import _np_offsets, _run
-from .pencil_kernel import FEATURES_ITEM, _is_f32, _TorchNS
+from .pencil_kernel import FEATURES_ITEM, _is_f32
 from .pencil_kernel_2d import fold_linear_forms
 from .taps import as_ir
 
@@ -129,7 +129,7 @@ def dense_stencil_plain(arrs: Sequence[torch.Tensor],
 
     out = torch.zeros(plan.shape, dtype=arrs[0].dtype, device=arrs[0].device)
     val = _run(plan.ir, read_tap, resolve_const_from_params(plan.params),
-               _TorchNS)
+               TorchNS)
     out[pk:SK - pk, pj:SJ - pj] = val
     return out
 

@@ -11,16 +11,56 @@ The caller supplies:
   Offsets are in eDSL order (dim 0 = innermost).
 - ``resolve_const(name)`` — value for a ``ConstRef`` spelling.
 
-Original: ``bricklib_tpu/codegen/evaluate.py``.
+Original: ``bricklib_tpu/codegen/evaluate.py``.  Passing ``xp=torch``
+evaluates with :class:`TorchNS`, which takes a Python scalar beside a
+tensor where ``torch.maximum`` and friends refuse one.
 """
 
 from __future__ import annotations
 
+import math
 import re
+
+import torch
 
 from ..st.expr import BinOp, ConstRef, Expr, FloatLiteral, If, IntLiteral, Op, UnOp, UOp
 from ..st.func import CallExpr
 from ..st.grid import GridRef
+
+
+class TorchNS:
+    """The array namespace the evaluator expects, on tensors
+    (``torch.maximum`` and friends refuse Python scalars)."""
+
+    @staticmethod
+    def maximum(a, b):
+        if not torch.is_tensor(a):
+            a, b = b, a
+        return (torch.maximum(a, b) if torch.is_tensor(b)
+                else torch.clamp(a, min=b))
+
+    @staticmethod
+    def minimum(a, b):
+        if not torch.is_tensor(a):
+            a, b = b, a
+        return (torch.minimum(a, b) if torch.is_tensor(b)
+                else torch.clamp(a, max=b))
+
+    @staticmethod
+    def where(c, a, b):
+        return torch.where(c, a, b)
+
+    abs = staticmethod(lambda v: torch.abs(v) if torch.is_tensor(v)
+                       else abs(v))
+    sqrt = staticmethod(lambda v: torch.sqrt(v) if torch.is_tensor(v)
+                        else math.sqrt(v))
+    exp = staticmethod(lambda v: torch.exp(v) if torch.is_tensor(v)
+                       else math.exp(v))
+    log = staticmethod(lambda v: torch.log(v) if torch.is_tensor(v)
+                       else math.log(v))
+    logical_not = staticmethod(torch.logical_not)
+    logical_and = staticmethod(torch.logical_and)
+    logical_or = staticmethod(torch.logical_or)
 
 
 def _make_func_map(xp):
@@ -67,6 +107,8 @@ def evaluate(expr: Expr, read_tap, resolve_const, xp, cache=None):
     codegen's CSE indexing (codegen/st/codegen/base.py:108-170): each
     distinct read/sub-DAG costs one VPU row value no matter how many
     expressions reference it."""
+    if xp is torch:
+        xp = TorchNS
     funcs = _make_func_map(xp)
     if cache is None:
         cache = {}

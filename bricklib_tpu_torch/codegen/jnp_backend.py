@@ -1,4 +1,5 @@
-"""numpy executors — the reference-semantics backends.
+"""numpy and PyTorch executors — the reference-semantics backends (the
+torch oracle).
 
 - ``dense_apply``: plain shifted-slice stencil on dense arrays.  This is
   the validation twin of every driver (the reference's array kernels, e.g.
@@ -7,7 +8,12 @@
   gather — the "scalar backend" analog (codegen/st/codegen/backend/scalar.py):
   numerically exact oracle for the Pallas backend, and itself jittable.
 
-Both run on numpy (the default ``xp``).
+Both run on numpy arrays or on torch tensors, on the tensors' device:
+numpy in, numpy out; tensor in, tensor out (``xp`` defaults to the
+inputs' namespace).  The numpy form is the dense validation twin of the
+drivers.  ``brick_apply`` takes ``adj`` (and ``rows``) as numpy arrays or
+as tensors on the storage's device, so a caller that steps many times
+uploads them once.
 
 Original: ``bricklib_tpu/codegen/jnp_backend.py``.
 """
@@ -15,6 +21,7 @@ Original: ``bricklib_tpu/codegen/jnp_backend.py``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.setup import halo_extend
 from ..st.loader import StencilDef
@@ -68,6 +75,11 @@ def _run(ir: StencilIR, read_tap, resolve, xp):
     return out
 
 
+def _namespace(arrays):
+    """``torch`` when the arrays are tensors, else numpy."""
+    return torch if any(torch.is_tensor(a) for a in arrays) else np
+
+
 def _np_offsets(offsets_edsl, dims):
     """eDSL offsets (dim 0 = innermost) -> numpy-axis offsets."""
     return tuple(offsets_edsl[dims - 1 - a] for a in range(dims))
@@ -80,7 +92,7 @@ def dense_apply(stencil, inputs: dict, params: dict | None = None, xp=None):
     """
     ir = _as_ir(stencil)
     if xp is None:
-        xp = np
+        xp = _namespace(inputs.values())
     params = params or {}
     dims = ir.dims
     lo, hi = ir.radius()
@@ -112,7 +124,7 @@ def brick_apply(stencil, views: dict, adj, params: dict | None = None,
     """
     ir = _as_ir(stencil)
     if xp is None:
-        xp = np
+        xp = _namespace(views.values())
     params = params or {}
     dims = ir.dims
     lo, hi = ir.radius()
@@ -128,3 +140,15 @@ def brick_apply(stencil, views: dict, adj, params: dict | None = None,
         return ext[name][(slice(None),) + sl]
 
     return _run(ir, read_tap, resolve_const_from_params(params), xp)
+
+
+def offset_stack(a, count: int, stride: int) -> np.ndarray:
+    """``count`` copies of brick ids ``a`` (an adjacency ``[n, 3^d]`` or a
+    list of rows) stacked along the first axis, copy ``s`` offset by ``s *
+    stride``: the ids of ``count`` storages stacked along the brick axis,
+    each reading its own bricks (its off-grid reads its own brick 0), so
+    one ``brick_apply`` runs them all."""
+    a = np.asarray(a, np.int64)
+    base = np.arange(int(count), dtype=np.int64) * int(stride)
+    return (a[None] + base.reshape((-1,) + (1,) * a.ndim)).reshape(
+        (-1,) + a.shape[1:])

@@ -31,7 +31,6 @@ checked as the reference checks them and change nothing.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -40,7 +39,7 @@ import torch
 
 from .. import _build
 from ..core import not_ported
-from .evaluate import evaluate, resolve_const_from_params
+from .evaluate import TorchNS, evaluate, resolve_const_from_params
 from .ir import StencilIR
 from .taps import TapTable, as_ir, params_from_reference
 
@@ -59,8 +58,10 @@ class SweepPlan:
     axis order), either the linear tap table (``taps``) or, for a
     nonlinear stencil, its IR and resolver, and the batch: ``batch``
     subdomains share the table, subdomain ``s`` adding ``s *
-    batch_stride`` to every brick id.  The 3-D sweep has outer axes
-    (k, j), the 4-D sweep (w, k, j)."""
+    batch_stride`` to every brick id.  ``fields`` names the input grids of
+    a multi-input stencil in the order the sweep takes them (empty for
+    one input).  The 3-D sweep has outer axes (k, j), the 4-D sweep (w,
+    k, j), the rank-``nd`` sweep ``nd - 1`` of them."""
 
     bdims: tuple
     table: np.ndarray
@@ -73,6 +74,7 @@ class SweepPlan:
     params: dict
     batch: int = 1
     batch_stride: int = 0
+    fields: tuple = ()
 
     def written_bricks(self) -> np.ndarray:
         """Storage ids this sweep writes (sorted, unique)."""
@@ -109,77 +111,52 @@ def _is_f32(dtype) -> bool:
     return np.dtype(dtype) == np.float32
 
 
-class _TorchNS:
-    """The array namespace the reference evaluator expects, on tensors
-    (``torch.maximum`` and friends refuse Python scalars)."""
-
-    @staticmethod
-    def maximum(a, b):
-        if not torch.is_tensor(a):
-            a, b = b, a
-        return (torch.maximum(a, b) if torch.is_tensor(b)
-                else torch.clamp(a, min=b))
-
-    @staticmethod
-    def minimum(a, b):
-        if not torch.is_tensor(a):
-            a, b = b, a
-        return (torch.minimum(a, b) if torch.is_tensor(b)
-                else torch.clamp(a, max=b))
-
-    @staticmethod
-    def where(c, a, b):
-        return torch.where(c, a, b)
-
-    abs = staticmethod(lambda v: torch.abs(v) if torch.is_tensor(v)
-                       else abs(v))
-    sqrt = staticmethod(lambda v: torch.sqrt(v) if torch.is_tensor(v)
-                        else math.sqrt(v))
-    exp = staticmethod(lambda v: torch.exp(v) if torch.is_tensor(v)
-                       else math.exp(v))
-    log = staticmethod(lambda v: torch.log(v) if torch.is_tensor(v)
-                       else math.log(v))
-    logical_not = staticmethod(torch.logical_not)
-    logical_and = staticmethod(torch.logical_and)
-    logical_or = staticmethod(torch.logical_or)
-
-
-def _apply_level(src: torch.Tensor, plan: SweepPlan) -> torch.Tensor:
-    """One stencil iteration on a dense ``[batch, *outer, BI]`` level; the
-    result is smaller by the radius on each side of every outer axis,
-    periodic in i."""
+def _apply_level(srcs: list, plan: SweepPlan) -> torch.Tensor:
+    """One stencil iteration on dense ``[batch, *outer, BI]`` levels, one
+    per input field; the result is smaller by the radius on each side of
+    every outer axis, periodic in i.  Taps add in tap order."""
     lo, hi = plan.lo, plan.hi
     no = len(plan.bdims) - 1
-    sizes = [src.shape[1 + a] - lo[a] - hi[a] for a in range(no)]
+    sizes = [srcs[0].shape[1 + a] - lo[a] - hi[a] for a in range(no)]
 
-    def shifted(offs):
-        v = src[(slice(None),) + tuple(
+    def shifted(f, offs):
+        v = srcs[f][(slice(None),) + tuple(
             slice(lo[a] + offs[a], lo[a] + offs[a] + sizes[a])
             for a in range(no))]
         return torch.roll(v, -offs[no], dims=no + 1) if offs[no] else v
 
     if plan.taps is None:
-        def read_tap(_name, offs_edsl):
-            return shifted([int(offs_edsl[no - a]) for a in range(no + 1)])
+        def read_tap(name, offs_edsl):
+            f = plan.fields.index(name) if plan.fields else 0
+            return shifted(f, [int(offs_edsl[no - a])
+                               for a in range(no + 1)])
 
         out = evaluate(plan.ir.sdef.rhs, read_tap,
-                       resolve_const_from_params(plan.params), _TorchNS)
-        return out.to(src.dtype)
+                       resolve_const_from_params(plan.params), TorchNS)
+        return out.to(srcs[0].dtype)
+    inputs = (plan.taps.inputs.tolist() if plan.taps.inputs is not None
+              else [0] * len(plan.taps.coeffs))
     acc = None
-    for offs, c in zip(plan.taps.offsets.tolist(),
-                       plan.taps.coeffs.tolist()):
-        t = c * shifted(offs)
+    for offs, c, f in zip(plan.taps.offsets.tolist(),
+                          plan.taps.coeffs.tolist(), inputs):
+        t = c * shifted(f, offs)
         acc = t if acc is None else acc + t
     return acc
 
 
-def pencil_sweep_plain(x: torch.Tensor, table: torch.Tensor,
+def pencil_sweep_plain(x, table: torch.Tensor,
                        plan: SweepPlan) -> torch.Tensor:
-    """The plain PyTorch version of kernels K1 (3-D) and K4 (4-D), on any
-    device: the levels as dense ``[batch, *outer, BI]`` tensors over the
-    output ranges grown by the radius.  Level 0 clamps whole bricks at
-    the table edge in every outer axis; after each intermediate level the
-    k rows outside the table take the clamped row's values."""
+    """The plain PyTorch version of kernels K1 (3-D), K4 (4-D) and K12
+    (rank 5 and above), on any device: the levels as dense ``[batch,
+    *outer, BI]`` tensors over the output ranges grown by the radius.
+    Level 0 clamps whole bricks at the table edge in every outer axis;
+    after each intermediate level the k rows outside the table take the
+    clamped row's values.  ``x`` is the storage, or for a multi-input
+    stencil (``fuse=1``) one storage per name of ``plan.fields``."""
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if len(xs) > 1 and plan.fuse != 1:
+        raise ValueError("a multi-input sweep applies one level")
+    x = xs[0]
     bd = plan.bdims
     no = len(bd) - 1
     G = plan.table.shape
@@ -197,11 +174,11 @@ def pencil_sweep_plain(x: torch.Tensor, table: torch.Tensor,
         offs.append((c - b * bd[a]).reshape(shape))
     strides = torch.arange(plan.batch, device=dev) * plan.batch_stride
     ids = ids[None] + strides.reshape((-1,) + (1,) * no)
-    level = x[(ids,) + tuple(o[None] for o in offs)]
+    levels = [xi[(ids,) + tuple(o[None] for o in offs)] for xi in xs]
     ka = no - 2                              # the k axis among the outer
     BK, GK, K0 = bd[ka], G[ka], plan.ranges[ka][0]
     for f in range(1, F + 1):
-        level = _apply_level(level, plan)
+        level = _apply_level(levels, plan)
         kbase = K0 * BK - (F - f) * plan.lo[ka]
         nk = level.shape[1 + ka]
         if f < F and (kbase < 0 or kbase + nk > GK * BK):
@@ -209,6 +186,7 @@ def pencil_sweep_plain(x: torch.Tensor, table: torch.Tensor,
             rb = torch.div(rows, BK, rounding_mode="floor")
             level = level.index_select(
                 1 + ka, rb.clamp(0, GK - 1) * BK + rows - rb * BK - kbase)
+        levels = [level]
     counts = [R1 - R0 for R0, R1 in plan.ranges]
     split = [plan.batch]
     for c, b in zip(counts, bd[:no]):

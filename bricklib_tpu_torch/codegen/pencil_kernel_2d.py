@@ -39,8 +39,8 @@ import torch
 
 from .. import _build
 from ..core import not_ported
-from .evaluate import evaluate, resolve_const_from_params
-from .pencil_kernel import FEATURES_ITEM, _is_f32, _TorchNS
+from .evaluate import TorchNS, evaluate, resolve_const_from_params
+from .pencil_kernel import FEATURES_ITEM, _is_f32
 from .taps import as_ir
 
 __all__ = ["K6_RADII", "K6_SMEM_BUDGET", "K6_THREADS", "Plan2D",
@@ -280,7 +280,7 @@ def pencil_sweep_2d_plain(views: Sequence[torch.Tensor], table: torch.Tensor,
         out = evaluate(plan.irs[k].sdef.rhs,
                        lambda name, offs: tap(uidx[name], int(offs[1]),
                                               int(offs[0])),
-                       resolve, _TorchNS)
+                       resolve, TorchNS)
         return out.to(views[0].dtype)
 
     if F == 1:

@@ -107,7 +107,8 @@ def halo_extend(view, adj, lo: Sequence[int], hi: Sequence[int],
     per element.  Reads that fall off the grid resolve to brick 0 and
     return its (garbage) contents, matching reference semantics.
 
-    ``lo[a]``/``hi[a]`` are the halo depths (≤ bdims[a]) on the low/high
+    ``adj`` (and ``rows``) may be numpy arrays or, for a tensor ``view``,
+    tensors on its device.  ``lo[a]``/``hi[a]`` are the halo depths (≤ bdims[a]) on the low/high
     side of axis ``a``.  ``rows`` restricts output to a brick subset (the
     drivers' interior/boundary split, cf. the reference's ``skip`` ring
     and sep_pos scheduling, weak/main.cpp:26-36, brick-mpi.h:196).
@@ -115,9 +116,12 @@ def halo_extend(view, adj, lo: Sequence[int], hi: Sequence[int],
     from .layout import adj_index
 
     if torch.is_tensor(view):
-        adj = torch.as_tensor(np.asarray(adj), device=view.device).long()
+        # a tensor already on the device is used as it is (no upload)
+        adj = torch.as_tensor(adj if torch.is_tensor(adj)
+                              else np.asarray(adj), device=view.device).long()
         if rows is not None:
-            rows = torch.as_tensor(np.asarray(rows), device=view.device)
+            rows = torch.as_tensor(rows if torch.is_tensor(rows)
+                                   else np.asarray(rows), device=view.device)
     if rows is not None:
         adj = adj[rows]
     nb = adj.shape[0]
@@ -167,7 +171,7 @@ def halo_extend(view, adj, lo: Sequence[int], hi: Sequence[int],
             if src is None:
                 return
             nbr = adj[:, adj_index(delta)]
-            data = view[nbr][(slice(None),) + src]
+            data = view[(nbr,) + src]    # gathers the halo slice alone
             E[(slice(None),) + dst] = data
             return
         for d in (-1, 0, 1):

@@ -18,12 +18,17 @@ GStencil/s and ms per step, the step statistics, and the step's ratio to
 a copy of the same storage (kernel K3), as ``bench.py``'s strong leg
 reports it.
 
-The port runs ``backend="pencil"`` (``"auto"`` picks it) with pencil
-subdomains on any mesh whose i axis has one rank (the reference's default
-mesh is ``2,1,1``; here it is ``1,1,1`` so that the default runs on one
-card).  A mesh's ranks may share a card (``devices=["cuda:0"] * 2``);
-without ``devices`` a mesh of several ranks takes one card each.  Cubic
-subdomains raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 2).  The
+``backend="pencil"`` (``"auto"`` picks it) runs pencil subdomains on any
+mesh whose i axis has one rank (the reference's default mesh is
+``2,1,1``; here it is ``1,1,1`` so that the default runs on one card);
+there, cubic subdomains raise ``NotImplementedError`` (ROADMAP.md Queue 1
+item 3(b)).  ``backend="jnp"`` runs the torch oracle on any subdomain
+shape, cubic ones included: bricks a whole brick deep in ghosts on every
+axis, the strong exchange over all three axes, then ``st_iter``
+ghost-inclusive iterations of one ``brick_apply`` over every subdomain of
+every rank of a card (the reference's ``vmap``).  A mesh's ranks may share
+a card (``devices=["cuda:0"] * 2``); without ``devices`` a mesh of
+several ranks takes one card each.  The
 sweeps and the twin take ``bench_params()``: the reference driver's
 ``DEFAULT_PARAMS`` lacks the ``coeff`` group that ``s7pt`` reads, and on
 every stencil it can run the two give the same coefficients.  ``--device``
@@ -40,7 +45,7 @@ import torch
 
 from ..bench.roofline import chain, copy_storage
 from ..bench.timing import mpi_statistics, time_mpi
-from ..codegen.jnp_backend import dense_apply
+from ..codegen.jnp_backend import brick_apply, dense_apply, offset_stack
 from ..codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
 from ..comm import skin3d_good
 from ..comm.exchange import on_card
@@ -58,21 +63,20 @@ def _check_supported(dom, sdom, mesh_shape, backend, exchange):
     if exchange not in ("shift", "remote"):
         raise ValueError("exchange is 'shift' (staged gather and copies) or "
                          "'remote' (one-kernel remote copies)")
-    if backend == "jnp":
-        raise not_ported("--backend jnp", "the torch oracle "
-                         "(dense_apply/brick_apply)")
-    if backend not in ("auto", "pencil"):
+    if backend not in ("auto", "pencil", "jnp"):
         raise ValueError(f"unknown backend {backend!r}")
-    if sdom[2] != dom[2] or mesh_shape[2] != 1:
+    if backend != "jnp" and (sdom[2] != dom[2] or mesh_shape[2] != 1):
         raise not_ported("cubic strong subdomains (i-bricked sweeps)",
                          FEATURES_ITEM)
 
 
 def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
                stencil="mpi7pt", st_iter=1, fuse=1, device="cuda",
-               mesh_shape=(1, 1, 1), exchange="shift", devices=None):
+               mesh_shape=(1, 1, 1), exchange="shift", devices=None,
+               backend="pencil"):
     """``(step, storage, plan, g)``: the strong step (exchange in place on
-    its argument, then the batched sweeps; returns the new storage), its
+    its argument, then the batched sweeps, or with ``backend="jnp"`` the
+    oracle's iterations; returns the new storage), its
     storage, the plan, and the global domain ``g`` it was cut from (numpy,
     seed 4).  On a mesh of one rank the storage is its ``[nsub, nbricks,
     *bdim]`` stack; on a larger mesh it is the state, one ``[p, nsub,
@@ -81,12 +85,17 @@ def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
     sd = stencil_by_name(stencil)[0]
     lo, hi = sd.radius()
     rad = max(max(lo), max(hi))
-    bdim = (int(bdim[0]), int(bdim[1]), int(sdom[2]))
-    gz = (bdim[0], bdim[1], 0)
-    if st_iter * rad > min(bdim[0], bdim[1]):
-        raise ValueError("st_iter x radius exceeds ghost depth")
-    if st_iter % fuse:
-        raise ValueError("st_iter must be a multiple of fuse")
+    if backend == "jnp":
+        # a whole brick of ghost on every axis (ref: strong.py:45-46)
+        bdim = tuple(int(b) for b in bdim)
+        gz = bdim
+    else:
+        bdim = (int(bdim[0]), int(bdim[1]), int(sdom[2]))
+        gz = (bdim[0], bdim[1], 0)
+        if st_iter * rad > min(bdim[0], bdim[1]):
+            raise ValueError("st_iter x radius exceeds ghost depth")
+        if st_iter % fuse:
+            raise ValueError("st_iter must be a multiple of fuse")
     plan = StrongDecomp(dom=dom, sdom=sdom, mesh_shape=tuple(mesh_shape),
                         bdims=bdim, ghost_depth=gz).initialize(skin3d_good)
     sdec = plan.sdec
@@ -109,6 +118,12 @@ def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
         arrays.append(stacked)
     state = to_state(mesh, arrays)
     del arrays
+    exchange_fn = (strong_remote_exchange(plan, mesh) if exchange == "remote"
+                   else strong_exchange(plan, mesh=mesh))
+    if backend == "jnp":
+        step_state = _oracle_step(sd, plan, bdim, st_iter, exchange_fn)
+        return (_finish(step_state, mesh, exchange_fn, None),
+                _storage(state, mesh), plan, g)
 
     kgrid = sdec.periodic_grid((2,))
     GKs, GJs = kgrid.shape[0], kgrid.shape[1]
@@ -127,8 +142,6 @@ def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
                 if st_iter > fuse else None)
         return by_batch[p]
 
-    exchange_fn = (strong_remote_exchange(plan, mesh) if exchange == "remote"
-                   else strong_exchange(plan, mesh=mesh))
     nsweeps = st_iter // fuse
 
     def step_state(state):
@@ -145,18 +158,58 @@ def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
             out.append(flat.view(t.shape))
         return out
 
+    step = _finish(step_state, mesh, exchange_fn,
+                   sweeps_for(len(mesh.ranks_on(0)))[::-1])
+    return step, _storage(state, mesh), plan, g
+
+
+def _oracle_step(sd, plan, bdim, st_iter, exchange_fn):
+    """The oracle's step over a state (ref: strong.py:139-143): the
+    exchange in place, then ``st_iter`` ghost-inclusive ``brick_apply``
+    iterations, one per card over every subdomain of its ranks (the
+    adjacency offset per subdomain, uploaded once per card)."""
+    gname = next(iter(sd.inputs))
+    nb = plan.sdec.nbricks
+    adj: dict = {}
+
+    def step_state(state):
+        exchange_fn(state)
+        out = []
+        for t in state:
+            n = t.shape[0] * t.shape[1]
+            if (t.device, n) not in adj:
+                adj[t.device, n] = torch.from_numpy(offset_stack(
+                    plan.sdec.info.adj, n, nb)).to(t.device)
+            v = t.view((-1,) + bdim)
+            with on_card(t.device):
+                for _ in range(st_iter):
+                    v = brick_apply(sd, {gname: v}, adj[t.device, n],
+                                    bench_params())
+            out.append(v.view(t.shape))
+        return out
+
+    return step_state
+
+
+def _storage(state, mesh):
+    """The state on a mesh of several ranks; one rank's stack otherwise."""
+    return state if mesh.size > 1 else state[0][0]
+
+
+def _finish(step_state, mesh, exchange_fn, sweeps):
+    """The step over the storage :func:`_storage` gives, carrying its
+    ``exchange``, ``sweeps`` (the pencil sweeps, skip then ghost) and
+    ``mesh``."""
     if mesh.size > 1:
-        step, storage = step_state, state
+        step = step_state
     else:
         def step(x):
-            """Exchange (in place on ``x``) then the batched sweeps."""
+            """Exchange (in place on ``x``) then the step's iterations."""
             return step_state([x.unsqueeze(0)])[0][0]
-
-        storage = state[0][0]
     step.exchange = exchange_fn
-    step.sweeps = sweeps_for(len(mesh.ranks_on(0)))[::-1]
+    step.sweeps = sweeps
     step.mesh = mesh
-    return step, storage, plan, g
+    return step
 
 
 def validate_step(step, storage, plan, g, stencil, st_iter,
@@ -203,9 +256,10 @@ def run(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
     dom, sdom = tuple(int(d) for d in dom), tuple(int(d) for d in sdom)
     mesh_shape = tuple(int(m) for m in mesh_shape)
     _check_supported(dom, sdom, mesh_shape, backend, exchange)
+    backend = "pencil" if backend == "auto" else backend
     step, storage, plan, g = build_step(dom, sdom, bdim, stencil, st_iter,
                                         fuse, device, mesh_shape, exchange,
-                                        devices)
+                                        devices, backend)
     mesh = step.mesh
     state = storage if mesh.size > 1 else [storage.unsqueeze(0)]
     calls = {"step": 0, "copy": 0}
@@ -246,8 +300,10 @@ def run(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
     label = mesh_label(mesh)
     print(f"device {label}")
     print(f"dom {dom} sdom {sdom} mesh {mesh_shape} "
-          f"subs/rank {nloc} stencil {stencil} backend pencil "
-          f"ST_ITER {st_iter} fuse {fuse} exchange {exchange}")
+          f"subs/rank {nloc} stencil {stencil} backend {backend} "
+          f"ST_ITER {st_iter}"
+          + (f" fuse {fuse}" if backend == "pencil" else "")
+          + f" exchange {exchange}")
     print(f"perf {gst:8.3f} GStencil/s ({avg * 1e3:.3f} ms/step)")
     print(f"copy roofline {copy_bw / 1e9:.1f} GB/s ({t_copy * 1e3:.3f} "
           f"ms/copy of {store_bytes / 1e6:.1f} MB); step at {vs_copy:.3f} "
@@ -278,7 +334,8 @@ def main(argv=None):
     p.add_argument("-v", "--validate", action="store_true")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "jnp", "pencil"],
-                   help="only pencil is ported (auto picks it)")
+                   help="pencil: batched pencil sweeps (auto picks it); "
+                        "jnp: the torch oracle, any subdomain shape")
     p.add_argument("--fuse", type=int, default=1,
                    help="iterations fused per pass over device memory")
     p.add_argument("--exchange", default="shift",

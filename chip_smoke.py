@@ -29,7 +29,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    bricks deep and with two i tiles per brick, bit-exact against the PUT
    exchange followed by K1 and against its plain version on the
    exchanged storage, its output at 1e-5 against the plain version (and
-   across two cards where the machine has them);
+   across two cards where the machine has them); K12 (the rank-5+ pencil
+   sweep) at 1e-5 against its plain version and at 1e-4 against a dense
+   i-wrapped twin: the 5-D 11-point star at (8, 8, 64, 64, 512), 1.89 GB
+   of storage, a two-input 5-D stencil with corner taps and a rank-6
+   star;
 4. drives the port's paths, each validated against a dense twin at 1e-4
    and timed: the honest 512^3 weak step (SHIFT exchange + two fuse=4
    s7pt sweeps, ``drivers.weak``), the 4-D weak step (16x64x128x512,
@@ -49,9 +53,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    the wave system of ``examples/wave_2d.py`` at
    16384^2, small 3-D and 4-D problems over K1 and K4, bench.py's
    125-point leg at 512^3 in three forms (``backend="mxu"`` over K8, the
-   pencil backend over K1 at fuse=1 and fuse=2), and the out-of-core pass
+   pencil backend over K1 at fuse=1 and fuse=2), the out-of-core pass
    (``ooc.ooc_sweep``, a host-resident 1024^3 array streamed through K7
-   in 7 slabs of 147 rows);
+   in 7 slabs of 147 rows), the torch oracle (``backend="jnp"``: the
+   weak step at 512^3, four ranks of 256^3 on mesh (2, 2, 1) with
+   ``--overlap``, the weak CLI's defaults with ``--f64-validate``, the
+   strong step in cubic 32^3 subdomains of 256^3, a 5-D ``Problem`` on
+   mesh (1, 1, 1, 1, 2) that ``auto`` must send to the oracle), and the
+   5-D sweep K12 through its own entry point ``pencil_sweep_nd``;
 5. checks from the launch counters, set to 0 just before each path and
    read just after, that each path ran through its kernels;
 6. times each kernel beside its plain version, the least time the card
@@ -60,7 +69,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    same function, that call (K1 and K8: one ``nn.Conv3d`` with circular
    padding on the dense 512^3 domain; K7: one valid ``F.conv3d`` on the
    padded slab; K2, K5, K9, K10: indexed assignments of the same rows;
-   K11 has none, and the composition it replaces is timed beside it).
+   K11 has none, and the composition it replaces is timed beside it; K12
+   has none, PyTorch having no 5-D convolution).
 
 Any failure exits non-zero.  Without a CUDA card, or outside a checkout of
 the repository, it exits non-zero and prints no result.  The line before
@@ -109,6 +119,23 @@ MESH_WEAK, MESH_STRONG = (2, 2, 1), (2, 1, 1)
 # rank on mesh (2, 2, 1), mpi7pt, st_iter 4) with the SHIFT and the fused
 # exchange
 MESH_2D, DW_DIMS, DW_ST = (2, 1), (32, 32, 128), 4
+# the rank-5+ sweep (K12; pallas_pencil_sweep_nd has no caller in Problem
+# or the drivers, so its entry point is the path): a 5-D 11-point star at
+# (8, 8, 64, 64, 512) per rank, bricks (2, 2, 8, 8, 512), ghost (2, 2, 8, 8,
+# 0), good skin: table (6, 6, 10, 10), 3,601 bricks of 512 KiB (1.89 GB);
+# and, smaller, a two-input 5-D stencil with corner taps and a rank-6 star
+DIMS5, BD5 = (8, 8, 64, 64, 512), (2, 2, 8, 8, 512)
+DIMS5_2IN, BD5_2IN = (4, 4, 16, 16, 256), (2, 2, 8, 8, 256)
+DIMS6, BD6 = (4, 4, 4, 8, 8, 128), (2, 2, 2, 4, 4, 128)
+K12_TIMED = 20
+# the torch oracle (backend "jnp", whole-brick ghosts): the weak step at
+# bench.py's 512^3 with bricks (8, 8, 128), the same at 256^3 per rank on
+# mesh (2, 2, 1) with --overlap, the weak CLI's defaults with
+# --f64-validate, the strong step with cubic 32^3 subdomains of 256^3, and
+# a 5-D Problem at (16, 16, 16, 16, 256) per rank on mesh (1, 1, 1, 1, 2)
+ORACLE_BD, ORACLE_MESH_N, ORACLE_ITERS = (8, 8, 128), 256, 10
+STRONG_ORACLE = ((256,) * 3, (32,) * 3, (8, 8, 8))
+DIMS5_P, MESH5_P = (16, 16, 16, 16, 256), (1, 1, 1, 1, 2)
 # H100 SXM published peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -852,6 +879,8 @@ def counters():
         pencil_sweep_2d_kernel)
     from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
         pencil_sweep_4d_kernel)
+    from bricklib_tpu_torch.codegen.pencil_kernel_nd import (
+        pencil_sweep_nd_kernel)
     from bricklib_tpu_torch.comm.exchange import copy_intervals, remote_copy
     from bricklib_tpu_torch.comm.strong import stage_copy, strong_remote_copy
 
@@ -860,7 +889,7 @@ def counters():
             "K5": stage_copy, "K6": pencil_sweep_2d_kernel,
             "K7": dense_stencil_kernel, "K8": pencil_sweep_mxu_kernel,
             "K9": remote_copy, "K10": strong_remote_copy,
-            "K11": pencil_sweep_fusedx_kernel}
+            "K11": pencil_sweep_fusedx_kernel, "K12": pencil_sweep_nd_kernel}
 
 
 def drive(name: str, run, want_of):
@@ -996,11 +1025,12 @@ def phase_paths(card: str) -> dict:
     ] + [
         ("out-of-core 1024^3 s7pt", ooc_path,
          lambda r: {"K7": r["calls"]["slab"]}),
-    ]
+    ] + oracle_paths()
     total = dict.fromkeys(counters(), 0)
     for name, run, want_of in paths:
         res, launches = drive(name, run, want_of)
-        (report_ooc if "ooc" in res else report)(card, name, res)
+        (report_ooc if "ooc" in res else report_nd if "sweep_ms" in res
+         else report)(card, name, res)
         for k in total:
             total[k] += launches[k]
     return total
@@ -1017,48 +1047,54 @@ def weak_mesh_stages():
 def weak_mesh_path(exchange: str, fuse: int = FUSE) -> dict:
     """The weak step at 512^3 per rank on mesh (2, 2, 1), four ranks on
     cuda:0, through ``drivers.weak.run``, validated by
-    :func:`weak_roll_validate`."""
+    :func:`roll_validate`."""
     from bricklib_tpu_torch.drivers import weak
 
     return weak.run(dims=(N_BIG,) * 3, bdim=(BD_K, BD_J, N_BIG),
                     stencil="s7pt", st_iter=ST_ITER, fuse=fuse,
                     table_periodic=False, backend="pencil",
                     mesh_shape=MESH_WEAK, exchange=exchange,
-                    devices=["cuda:0"] * 4, validate=weak_roll_validate)
+                    devices=["cuda:0"] * 4,
+                    validate=roll_validate("s7pt", ST_ITER))
 
 
-def weak_roll_validate(s) -> bool:
-    """One mesh step against a ``torch.roll`` twin of the global periodic
-    domain (1024 x 1024 x 512) on the card, each rank's owned 512^3 block
-    at abs-or-rel 1e-4: the ghost depth (8) covers ST_ITER (8) radius-1
-    iterations, so the whole owned block is exact."""
-    import numpy as np
-    import torch
+def roll_validate(stencil: str, st_iter: int):
+    """A validation function for ``weak.run``: one step against a
+    ``torch.roll`` twin of the global periodic domain on the card, each
+    rank's owned block at abs-or-rel 1e-4 (the ghost depth covers
+    ``st_iter`` radius-1 iterations, so the whole owned block is exact)."""
 
-    from bricklib_tpu_torch.comm.mesh import rank_views
-    from bricklib_tpu_torch.drivers import weak
-    from bricklib_tpu_torch.stencils import bench_params, stencil_by_name
+    def check(s) -> bool:
+        import torch
 
-    out = rank_views(s.mesh, s.step(weak.clone_state(s.state)))
-    g = torch.from_numpy(s.g).cuda()
-    twin = roll_twin(g, stencil_by_name("s7pt")[0], bench_params(), ST_ITER)
-    del g
-    ids = torch.from_numpy(np.ascontiguousarray(
-        s.dec.interior_grid()[..., 0], np.int64)).cuda()
-    ok = bool(torch.isfinite(twin).all())
-    for r, v in enumerate(out):
-        c = s.mesh.coords_of(r)
-        got = v[ids].permute(0, 2, 1, 3, 4).reshape((N_BIG,) * 3)
-        want = twin[c[0] * N_BIG:(c[0] + 1) * N_BIG,
-                    c[1] * N_BIG:(c[1] + 1) * N_BIG]
-        good, e = close(got, want, 1e-4)
-        print(f"[4 weak mesh rank {r} {c}] against the global roll twin: "
-              f"max abs err {e:.3e} (abs-or-rel 1e-4) "
-              f"{'ok' if good else 'MISMATCH'}")
-        ok &= good
-    del out, twin
-    torch.cuda.empty_cache()
-    return ok
+        from bricklib_tpu_torch.comm.mesh import rank_views
+        from bricklib_tpu_torch.core.setup import from_bricks
+        from bricklib_tpu_torch.drivers import weak
+        from bricklib_tpu_torch.stencils import bench_params, stencil_by_name
+
+        out = rank_views(s.mesh, s.step(weak.clone_state(s.state)))
+        g = torch.from_numpy(s.g).cuda()
+        twin = roll_twin(g, stencil_by_name(stencil)[0], bench_params(),
+                         st_iter)
+        del g
+        dims, grid = s.dec.dims, s.dec.interior_grid()
+        ok = bool(torch.isfinite(twin).all())
+        for r, v in enumerate(out):
+            c = s.mesh.coords_of(r)
+            got = from_bricks(v.reshape(s.dec.nbricks, -1), grid, s.bdim)
+            want = twin[tuple(slice(c[a] * d, (c[a] + 1) * d)
+                              for a, d in enumerate(dims))]
+            good, e = close(got, want, 1e-4)
+            print(f"[4 weak rank {r} {c}] against the global roll twin: "
+                  f"max abs err {e:.3e} (abs-or-rel 1e-4) "
+                  f"{'ok' if good else 'MISMATCH'}")
+            ok &= good
+            del got
+        del out, twin
+        torch.cuda.empty_cache()
+        return ok
+
+    return check
 
 
 def run_problem(p, init: dict, twin: dict, n_valid: int, n_timed: int):
@@ -1225,19 +1261,19 @@ def problem_125(backend: str, fuse: int):
 
 
 def roll_twin(a, sdef, params, n: int):
-    """``n`` iterations of a linear stencil on a dense periodic array on
-    the card: one ``torch.roll`` per folded tap."""
+    """``n`` iterations of a linear stencil on a dense periodic array of
+    any rank on the card: one ``torch.roll`` per folded tap."""
     import torch
 
     from bricklib_tpu_torch.codegen.taps import params_from_reference
 
     taps = params_from_reference(params, sdef)
+    axes = tuple(range(a.dim()))
     for _ in range(n):
         acc = torch.zeros_like(a)
-        for (dk, dj, di), c in zip(taps.offsets.tolist(),
-                                   taps.coeffs.tolist()):
-            acc.add_(torch.roll(a, shifts=(-dk, -dj, -di), dims=(0, 1, 2)),
-                     alpha=c)
+        for offs, c in zip(taps.offsets.tolist(), taps.coeffs.tolist()):
+            acc.add_(torch.roll(a, shifts=tuple(-o for o in offs),
+                                dims=axes), alpha=c)
         a = acc
     return a
 
@@ -1411,6 +1447,7 @@ def phase_times(card: str) -> dict:
     out.update(phase_times_3d(card))
     out.update(phase_times_dense(card))
     out.update(phase_times_mesh(card))
+    out.update(phase_times_nd(card))
     return out
 
 
@@ -1843,6 +1880,270 @@ def phase_times_2d(card: str) -> dict:
     return out
 
 
+def star_nd(nd: int, two: bool = False, corner: bool = False):
+    """A rank-``nd`` stencil in the port's eDSL: the ``2 nd + 1``-point
+    star (radius 1 on every axis, distinct coefficients); ``two`` adds
+    taps of a second input ``aux``; ``corner`` adds two taps that cross
+    three axes at once."""
+    from bricklib_tpu_torch.st import Grid, Index
+    from bricklib_tpu_torch.st.loader import load_stencil_module
+
+    idx = [Index(a) for a in range(nd)]
+    g, o = Grid("in", nd), Grid("out", nd)
+
+    def at(grid, **moves):
+        ii = list(idx)
+        for a, d in moves.items():
+            ii[int(a[1:])] = idx[int(a[1:])] + d
+        return grid(*ii)
+
+    e = 0.3 * g(*idx)
+    for a in range(nd):
+        for d in (1, -1):
+            e = e + (0.05 + 0.01 * a + 0.003 * d) * at(g, **{f"a{a}": d})
+    if corner:
+        e = e + 0.07 * at(g, a0=1, a3=1, a4=-1) - 0.02 * at(g, a1=-1,
+                                                            a2=1, a4=1)
+    if two:
+        h = Grid("aux", nd)
+        e = e + 0.11 * at(h, a2=1) - 0.05 * h(*idx)
+    o(*idx).assign(e)
+    return load_stencil_module({"STENCIL": [o]})[0]
+
+
+def nd_case(dims, bd, sdef, seed: int):
+    """(sweep, inputs, decomposition) of a rank-``nd`` pencil decomposition
+    (ghost one brick on every outer axis, none in i, good skin): the sweep
+    over the owned bricks and one random storage per input on the card."""
+    from bricklib_tpu_torch.codegen.pencil_kernel_nd import pencil_sweep_nd
+    from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
+
+    nd = len(dims)
+    dec = BrickDecomp(dims=dims, ghost_depth=bd[:-1] + (0,),
+                      bdims=bd).initialize(skinlist_by_name("good", nd))
+    fn = pencil_sweep_nd(sdef, dec.grid, bd, dec.nbricks, {})
+    xs = [rand_cuda((dec.nbricks,) + bd, seed + f)
+          for f in range(len(getattr(fn, "fields", "x")))]
+    return fn, xs, dec
+
+
+def nd_twin(xs, fn, dec):
+    """The owned region of one rank-``nd`` sweep as dense tensor code on
+    the card: each input gathered to its dense block (ghosts included),
+    one slice per folded tap, rolled along the i row."""
+    import torch
+
+    from bricklib_tpu_torch.core.setup import from_bricks
+
+    plan = fn.plan
+    nd = len(plan.bdims)
+    gz = plan.bdims[:-1] + (0,)
+    dense = [from_bricks(x.view(dec.nbricks, -1), dec.grid, plan.bdims)
+             for x in xs]
+    acc = None
+    inputs = (plan.taps.inputs.tolist() if plan.taps.inputs is not None
+              else [0] * len(plan.taps.coeffs))
+    for offs, c, f in zip(plan.taps.offsets.tolist(),
+                          plan.taps.coeffs.tolist(), inputs):
+        v = dense[f][tuple(slice(gz[a] + offs[a], gz[a] + offs[a]
+                                 + dec.dims[a]) for a in range(nd - 1))]
+        v = c * torch.roll(v, -offs[-1], dims=nd - 1)
+        acc = v if acc is None else acc + v
+    return acc
+
+
+def check_nd(name: str, fn, xs, dec, err: dict) -> None:
+    """K12 against its plain version on the bricks it writes at
+    abs-or-rel 1e-5, and its owned region against the dense i-wrapped
+    twin at 1e-4."""
+    import torch
+
+    from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_plain
+    from bricklib_tpu_torch.core.setup import from_bricks
+
+    got = fn(*xs)
+    table = torch.from_numpy(fn.plan.table).cuda()
+    want = pencil_sweep_plain(xs, table, fn.plan)
+    w = torch.from_numpy(fn.plan.written_bricks()).cuda()
+    ok, e = close(got[w], want[w], K1_TOL)
+    del want
+    err["K12"] = max(err.get("K12", 0.0), e)
+    own = from_bricks(got.view(dec.nbricks, -1), dec.interior_grid(),
+                      fn.plan.bdims)
+    ok2, e2 = close(own, nd_twin(xs, fn, dec), 1e-4)
+    print(f"[3 K12 {name}] {len(w)} bricks: max abs err {e:.3e} against "
+          f"the plain version (abs-or-rel {K1_TOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}; {e2:.3e} against the dense "
+          f"i-wrapped twin (1e-4) {'ok' if ok2 else 'MISMATCH'}")
+    if not (ok and ok2):
+        fail(f"K12 {name} disagrees")
+    del got, own
+    torch.cuda.empty_cache()
+
+
+def phase_kernels_nd(err: dict) -> None:
+    """K12 against its plain version: the 5-D star at the full
+    decomposition, a two-input 5-D stencil with corner taps and a rank-6
+    star at smaller sizes."""
+    for name, dims, bd, sdef, seed in (
+            (f"5-D star {DIMS5}", DIMS5, BD5, star_nd(5), 40),
+            (f"5-D two-input corners {DIMS5_2IN}", DIMS5_2IN, BD5_2IN,
+             star_nd(5, two=True, corner=True), 41),
+            (f"6-D star {DIMS6}", DIMS6, BD6, star_nd(6), 43)):
+        fn, xs, dec = nd_case(dims, bd, sdef, seed)
+        check_nd(name, fn, xs, dec, err)
+        del xs
+
+
+def nd_path() -> dict:
+    """The rank-5+ sweep's own entry point (``pencil_sweep_nd``, the
+    counterpart of ``pallas_pencil_sweep_nd``) on the full 5-D
+    decomposition: one sweep held against the dense twin, then
+    ``K12_TIMED`` timed."""
+    import numpy as np
+    import torch
+
+    from bricklib_tpu_torch.core.setup import from_bricks
+
+    fn, xs, dec = nd_case(DIMS5, BD5, star_nd(5), 44)
+    got = from_bricks(fn(*xs).view(dec.nbricks, -1), dec.interior_grid(),
+                      BD5)
+    ok, e = close(got, nd_twin(xs, fn, dec), 1e-4)
+    print(f"[4 K12 5-D sweep] against the dense i-wrapped twin: max abs err "
+          f"{e:.3e} (abs-or-rel 1e-4) {'ok' if ok else 'MISMATCH'}")
+    if not ok or not bool(torch.isfinite(got).all()):
+        fail("the 5-D sweep disagrees with its dense twin")
+    del got
+    ms = cuda_ms(lambda: fn(*xs), K12_TIMED)
+    del xs
+    torch.cuda.empty_cache()
+    return {"sweep_ms": ms,
+            "gstencil_s": float(np.prod(DIMS5)) / ms / 1e6,
+            "calls": {"sweep": 2 + K12_TIMED}}
+
+
+def report_nd(card: str, name: str, res: dict) -> None:
+    print(f"[5 {name} sweep] {card}: {res['sweep_ms']:.3f} ms/sweep, "
+          f"{res['gstencil_s']:.3f} GStencil/s")
+
+
+def oracle_k2(dims, bd, mesh) -> int:
+    """K2 launches per oracle exchange with every rank on one card: one
+    per SHIFT stage on an axis of one rank (whole-brick ghosts)."""
+    from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
+    from bricklib_tpu_torch.comm.exchange import shift_stages
+
+    nd = len(dims)
+    dec = BrickDecomp(dims=dims, ghost_depth=bd, bdims=bd).initialize(
+        skinlist_by_name("good", nd))
+    return sum(not st.remote for st in shift_stages(dec, mesh))
+
+
+def weak_oracle(dims, mesh=None, overlap=False) -> dict:
+    """The weak step on the torch oracle (s7pt, bricks (8, 8, 128),
+    ST_ITER 8), ranks on cuda:0, validated against the global roll
+    twin."""
+    import numpy as np
+
+    from bricklib_tpu_torch.drivers import weak
+
+    n = 1 if mesh is None else int(np.prod(mesh))
+    return weak.run(dims=dims, bdim=ORACLE_BD, stencil="s7pt",
+                    st_iter=ST_ITER, backend="jnp", mesh_shape=mesh,
+                    overlap=overlap, devices=["cuda:0"] * n,
+                    iters=ORACLE_ITERS,
+                    validate=roll_validate("s7pt", ST_ITER))
+
+
+def problem_5d() -> dict:
+    """A 5-D ``Problem`` with the 11-point star at (16, 16, 16, 16, 256)
+    per rank on mesh (1, 1, 1, 1, 2), two ranks on cuda:0: ``auto`` must
+    resolve to the oracle (the i axis is distributed); one step held
+    against a ``torch.roll`` twin of the global domain."""
+    import torch
+
+    from bricklib_tpu_torch.api import Problem
+
+    sd = star_nd(5)
+    p = Problem(dims=DIMS5_P, stencil=sd, mesh=MESH5_P,
+                devices=["cuda:0"] * 2)
+    if p.backend != "jnp" or p.describe()["kernels"] != []:
+        fail(f"Problem 5-D resolved to {p.backend}")
+    gshape = tuple(m * d for m, d in zip(MESH5_P, DIMS5_P))
+    g = rand_cuda(gshape, 45)
+    twin = {p.gname: roll_twin(g, sd, p.params, p.st_iter)}
+    res = run_problem(p, {"array": g.cpu().numpy()}, twin, 1, ORACLE_ITERS)
+    del g, twin
+    res["k2"] = oracle_k2(p.dims, p.bdims, p.eff_mesh)
+    del p
+    torch.cuda.empty_cache()
+    return res
+
+
+def oracle_paths() -> list:
+    """The oracle's paths for :func:`phase_paths`: (name, run, launches of
+    the result)."""
+    from bricklib_tpu_torch.drivers import strong, weak
+
+    n1 = (N_BIG,) * 3
+    nm = (ORACLE_MESH_N,) * 3
+    sdom = STRONG_ORACLE
+    return [
+        (f"weak {N_BIG}^3 jnp", lambda: weak_oracle(n1),
+         lambda r: {"K2": oracle_k2(n1, ORACLE_BD, (1, 1, 1))
+                    * r["calls"]["step"], "K3": r["calls"]["copy"]}),
+        (f"weak {ORACLE_MESH_N}^3 per rank jnp, mesh {MESH_WEAK}, 4 ranks "
+         "on cuda:0, overlap", lambda: weak_oracle(nm, MESH_WEAK, True),
+         lambda r: {"K2": oracle_k2(nm, ORACLE_BD, MESH_WEAK)
+                    * r["calls"]["step"], "K3": r["calls"]["copy"]}),
+        ("weak CLI defaults jnp --f64-validate", lambda: weak.run(
+            dims=(64,) * 3, bdim=(8,) * 3, stencil="mpi7pt", st_iter=8,
+            iters=ORACLE_ITERS, f64_validate=True, device="cuda"),
+         lambda r: {"K2": oracle_k2((64,) * 3, (8,) * 3, (1, 1, 1))
+                    * r["calls"]["step"], "K3": r["calls"]["copy"]}),
+        (f"strong {sdom[0]} in cubic {sdom[1]} jnp", lambda: strong.run(
+            dom=sdom[0], sdom=sdom[1], bdim=sdom[2], stencil="s7pt",
+            st_iter=ST_ITER, backend="jnp", validate=True,
+            iters=ORACLE_ITERS, device="cuda"),
+         lambda r: {"K5": r["exchange_steps"] * r["calls"]["step"],
+                    "K3": r["calls"]["copy"]}),
+        (f"Problem 5-D {DIMS5_P} per rank, mesh {MESH5_P}, 2 ranks on "
+         "cuda:0, auto -> jnp", problem_5d,
+         lambda r: {"K2": r["k2"] * r["calls"]["step"],
+                    "K3": r["calls"]["copy"]}),
+        ("K12 5-D pencil sweep (pencil_sweep_nd)", nd_path,
+         lambda r: {"K12": r["calls"]["sweep"]}),
+    ]
+
+
+def phase_times_nd(card: str) -> dict:
+    """K12 at the full 5-D decomposition beside its plain version and its
+    bound: the computed region grown by the radius read once and the
+    region written once, 2 f32 operations per folded tap and output
+    element.  No single PyTorch call computes it (no 5-D convolution)."""
+    import numpy as np
+    import torch
+
+    from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_plain
+
+    fn, xs, dec = nd_case(DIMS5, BD5, star_nd(5), 46)
+    plan = fn.plan
+    table = torch.from_numpy(plan.table).cuda()
+    counts = [b - a for a, b in plan.ranges]
+    region = [c * b for c, b in zip(counts, plan.bdims)] + [plan.bdims[-1]]
+    grown = [n + lo + hi for n, lo, hi in zip(region[:-1], plan.lo,
+                                              plan.hi)] + [region[-1]]
+    nout = float(np.prod(region))
+    r = row(cuda_ms(lambda: fn(*xs), K12_TIMED),
+            cuda_ms(lambda: pencil_sweep_plain(xs, table, plan), 2),
+            4 * (len(xs) * float(np.prod(grown)) + nout),
+            2 * len(plan.taps.coeffs) * nout, None)
+    print_times(card, "K12", f"5-D star {DIMS5}", r)
+    del xs
+    torch.cuda.empty_cache()
+    return {"K12": r}
+
+
 def main() -> None:
     if not (HERE / "bricklib_tpu_torch" / "csrc").is_dir():
         fail(f"no bricklib_tpu_torch/ beside {Path(__file__).name}: run it "
@@ -1866,6 +2167,7 @@ def main() -> None:
     phase_kernels_2d(err)
     phase_kernels_mxu(err)
     phase_kernels_dense(err)
+    phase_kernels_nd(err)
     launches = phase_paths(card)
     times = phase_times(card)
     if "jax" in sys.modules:
@@ -1909,6 +2211,9 @@ def main() -> None:
         ("K11", {"name": "K11 pencil_sweep_fusedx", "route": "cuda",
                  "source": src + "fused_exchange.cu",
                  "replaces": "bricklib_tpu/codegen/fused_exchange.py:56"}),
+        ("K12", {"name": "K12 pencil_sweep_nd", "route": "cuda",
+                 "source": src + "pencil_sweep_nd.cu",
+                 "replaces": "bricklib_tpu/codegen/pencil_kernel_nd.py:51"}),
     ]
     for k, entry in kernels:
         entry.update(launches=launches[k], max_abs_err=err[k],

@@ -373,7 +373,7 @@ def test_weak_fused_equals_put_on_the_cpu():
 
 def test_weak_fused_run_and_cli_validate(capsys):
     res = weak.run(**STEP, mesh_shape=(2, 2, 1), exchange="fused",
-                   validate=True, iters=1, device="cpu")
+                   backend="pencil", validate=True, iters=1, device="cpu")
     out = capsys.readouterr().out
     assert "validated against array twin: OK" in out
     assert "exchange fused" in out and "exchange share" in out
@@ -381,7 +381,8 @@ def test_weak_fused_run_and_cli_validate(capsys):
     assert fx.pencil_sweep_fusedx_kernel.launches == 0
     weak.main(["-d", "32,16,32", "-b", "8,8,32", "-s", "s7pt", "-I", "2",
                "--fuse", "1", "--no-table-periodic", "--mesh", "2,1,1",
-               "--exchange", "fused", "--iters", "1", "--device", "cpu"])
+               "--exchange", "fused", "--backend", "pencil", "--iters", "1",
+               "--device", "cpu"])
     assert "validated against array twin: OK" in capsys.readouterr().out
     s = weak._make_step((32, 16, 32), (8, 8, 32), "s7pt", 2, 1, False,
                         "good", "cpu", quiet=True, mesh_shape=(2, 1, 1),

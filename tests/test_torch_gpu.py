@@ -552,3 +552,80 @@ def test_fused_weak_step_and_problem_on_card_match_cpu(cuda):
         want = Problem(device="cpu", exchange=ex, **pk).init(
             seed=4).step(2).result()
         assert compare_arrays(got, want, 1e-5) and np.isfinite(got).all()
+
+
+def _star_nd(nd, two=False, corner=False):
+    idx = [st.Index(a) for a in range(nd)]
+    g, o = st.Grid("in", nd), st.Grid("out", nd)
+
+    def at(grid, moves):
+        ii = list(idx)
+        for a, d in moves.items():
+            ii[a] = idx[a] + d
+        return grid(*ii)
+
+    e = 0.3 * g(*idx)
+    for a in range(nd):
+        for d in (1, -1):
+            e = e + (0.05 + 0.01 * a + 0.003 * d) * at(g, {a: d})
+    if corner:
+        e = e + 0.07 * at(g, {0: 1, 3: 1, 4: -1})
+    if two:
+        h = st.Grid("aux", nd)
+        e = e + 0.11 * at(h, {2: 1}) - 0.05 * h(*idx)
+    o(*idx).assign(e)
+    return st.load_stencil_module({"STENCIL": [o]})[0]
+
+
+@pytest.mark.parametrize("dims,bd,kw,ranges", [
+    ((4, 4, 8, 8, 16), (2, 2, 4, 4, 16), {}, None),
+    ((4, 4, 8, 8, 32), (2, 2, 4, 4, 32), dict(two=True, corner=True), None),
+    ((4, 4, 8, 8, 16), (2, 2, 4, 4, 16), {},
+     ((0, 3), (1, 4), (0, 4), (2, 3))),
+    ((4, 2, 4, 4, 8, 16), (2, 1, 2, 2, 4, 16), dict(corner=True), None),
+], ids=["5d-star", "5d-two-input-corners", "5d-ranges", "6d-corners"])
+def test_sweep_nd_kernel_matches_plain(cuda, dims, bd, kw, ranges):
+    """K12 (the rank-5+ sweep) against its plain version on the bricks it
+    writes, at abs-or-rel 1e-5."""
+    from bricklib_tpu_torch.codegen.pencil_kernel_nd import (
+        pencil_sweep_nd, pencil_sweep_nd_kernel)
+
+    nd = len(dims)
+    dec = BrickDecomp(dims=dims, ghost_depth=bd[:-1] + (0,),
+                      bdims=bd).initialize(skinlist_by_name("good", nd))
+    fn = pencil_sweep_nd(_star_nd(nd, **kw), dec.grid, bd, dec.nbricks, {},
+                         ranges=ranges)
+    xs = [torch.from_numpy(random_array((dec.nbricks,) + bd, np.float32,
+                                        s)).to(cuda)
+          for s in range(2 if kw.get("two") else 1)]
+    before = pencil_sweep_nd_kernel.launches
+    got = fn(*xs)
+    assert pencil_sweep_nd_kernel.launches == before + 1
+    want = pencil_sweep_plain(xs, torch.from_numpy(fn.plan.table).to(cuda),
+                              fn.plan)
+    torch.cuda.synchronize()
+    w = fn.plan.written_bricks()
+    assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
+
+
+def test_oracle_paths_on_card_match_cpu(cuda):
+    """The torch oracle on the card: the weak step (overlap, a mesh on one
+    card) and a 5-D Problem on a mesh whose i axis is distributed, against
+    the same runs on the CPU."""
+    kw = dict(dims=(16, 16, 32), bdim=(4, 4, 16), stencil="s7pt",
+              st_iter=4, backend="jnp", overlap=True, mesh_shape=(2, 1, 1))
+    step_c, st_c, dec = weak.build_step(**kw, devices=[cuda] * 2)
+    step_h, st_h, _ = weak.build_step(**kw, device="cpu")
+    own = dec.owned_mask()
+    assert compare_arrays(step_c(st_c)[0].cpu().numpy()[:, own],
+                          step_h(st_h)[0].numpy()[:, own], 1e-5)
+    pk = dict(dims=(4, 4, 4, 4, 8), stencil=_star_nd(5),
+              bdims=(2, 2, 2, 2, 4), mesh=(1, 1, 1, 1, 2), st_iter=2)
+    got = Problem(devices=[cuda] * 2, **pk).init(seed=5).step(2)
+    want = Problem(device="cpu", **pk).init(seed=5).step(2)
+    assert got.backend == "jnp"
+    assert compare_arrays(got.result(), want.result(), 1e-5)
+    res = strong.run(dom=(32, 32, 32), sdom=(16, 16, 16), bdim=(4, 4, 8),
+                     stencil="s7pt", st_iter=2, backend="jnp",
+                     validate=True, iters=1, device=cuda)
+    assert res["calls"]["step"] > 0

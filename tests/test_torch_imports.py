@@ -40,10 +40,13 @@ from bricklib_tpu_torch.codegen.dense_kernel import dense_stencil_kernel
 from bricklib_tpu_torch.codegen.mxu_kernel import pencil_sweep_mxu_kernel
 from bricklib_tpu_torch.codegen.fused_exchange import (
     pencil_sweep_fusedx, pencil_sweep_fusedx_kernel)
+from bricklib_tpu_torch.codegen.pencil_kernel_nd import (
+    pencil_sweep_nd, pencil_sweep_nd_kernel)
 from bricklib_tpu_torch.ooc import ooc_sweep
 from bricklib_tpu_torch.st import ConstRef, Grid, Index, load_stencil_module
 from bricklib_tpu_torch.stencils import bench_params
 import numpy as np
+import torch
 
 res = weak.run(dims=(32, 32, 32), bdim=(8, 8, 32), stencil="s7pt",
                st_iter=8, fuse=4, table_periodic=False, backend="pencil",
@@ -60,7 +63,8 @@ assert res["calls"]["step"] > 0
 for ex in ("shift", "put", "shift-remote"):
     res = weak.run(dims=(16, 16, 32), bdim=(8, 8, 32), stencil="s7pt",
                    st_iter=4, fuse=2, table_periodic=False, mesh_shape=(2, 2, 1),
-                   exchange=ex, validate=True, iters=1, device="cpu")
+                   exchange=ex, backend="pencil", validate=True, iters=1,
+                   device="cpu")
     assert res["ranks"] == 4 and res["cards"] == 1
 res = strong.run(dom=(32, 32, 32), sdom=(8, 16, 32), bdim=(4, 4, 32),
                  stencil="s7pt", st_iter=4, fuse=2, mesh_shape=(2, 1, 1),
@@ -68,7 +72,8 @@ res = strong.run(dom=(32, 32, 32), sdom=(8, 16, 32), bdim=(4, 4, 32),
 assert res["ranks"] == 2
 res = weak.run(dims=(32, 16, 32), bdim=(8, 8, 32), stencil="s7pt",
                st_iter=2, fuse=1, table_periodic=False, mesh_shape=(2, 2, 1),
-               exchange="fused", validate=True, iters=1, device="cpu")
+               exchange="fused", backend="pencil", validate=True, iters=1,
+               device="cpu")
 assert res["ranks"] == 4
 for ex in ("shift", "fused"):
     p = Problem(dims=(32, 16, 32), stencil="mpi7pt", mesh=(2, 2, 1),
@@ -92,13 +97,39 @@ stats = {}
 assert ooc_sweep(g, "s7pt", bench_params(), iters=2, slab_rows=6,
                  stats=stats, device="cpu").shape == g.shape
 assert stats["slabs"] == 3
+# the torch oracle: the weak driver's default backend (with --overlap and
+# --f64-validate), the strong driver's on cubic subdomains, Problem at
+# rank 5 on a mesh whose i axis is distributed (auto picks it)
+res = weak.run(dims=(16, 16, 32), bdim=(4, 4, 16), stencil="s7pt",
+               st_iter=4, mesh_shape=(2, 1, 1), overlap=True,
+               f64_validate=True, validate=True, iters=1, device="cpu")
+assert res["ranks"] == 2
+res = strong.run(dom=(32, 32, 32), sdom=(16, 16, 16), bdim=(4, 4, 8),
+                 stencil="s7pt", st_iter=2, backend="jnp", validate=True,
+                 iters=1, device="cpu")
+assert res["calls"]["step"] > 0
+idx = [Index(a) for a in range(5)]
+g5, o5 = Grid("in", 5), Grid("out", 5)
+up = list(idx)
+up[0] = idx[0] + 1
+o5(*idx).assign(ConstRef("0.5") * g5(*idx) + ConstRef("0.5") * g5(*up))
+sd5 = load_stencil_module({"STENCIL": [o5]})[0]
+p = Problem(dims=(4, 4, 4, 4, 8), stencil=sd5, bdims=(2, 2, 2, 2, 4),
+            mesh=(1, 1, 1, 1, 2), device="cpu")
+assert p.backend == "jnp"
+assert p.init(seed=1).step(1).result().shape == (4, 4, 4, 4, 16)
+fn = pencil_sweep_nd(sd5, np.arange(1, 257, dtype=np.int32).reshape(
+    (4,) * 4), (2, 2, 2, 2, 16), 257, {})
+x = torch.ones((257, 2, 2, 2, 2, 16))
+assert float(fn(x)[fn.plan.written_bricks()].min()) == 1.0
 assert (pencil_sweep_kernel.launches, pencil_sweep_2d_kernel.launches,
         pencil_sweep_4d_kernel.launches, copy_intervals.launches,
         stage_copy.launches, copy_storage.launches,
         pencil_sweep_mxu_kernel.launches,
         dense_stencil_kernel.launches, remote_copy.launches,
         strong_remote_copy.launches,
-        pencil_sweep_fusedx_kernel.launches) == (0,) * 11
+        pencil_sweep_fusedx_kernel.launches,
+        pencil_sweep_nd_kernel.launches) == (0,) * 12
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules
@@ -166,7 +197,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert {p.name for p in _build.sources()} == {
         "brick_copy.cu", "dense_stencil.cu", "pencil_sweep.cu",
         "pencil_sweep_2d.cu", "pencil_sweep_4d.cu", "pencil_sweep_mxu.cu",
-        "remote_copy.cu", "fused_exchange.cu"}
+        "remote_copy.cu", "fused_exchange.cu", "pencil_sweep_nd.cu"}
     for name, argtypes in _build.SIGNATURES.items():
         assert name.startswith("bt_") and argtypes[-1] is ctypes.c_void_p
 

@@ -181,10 +181,14 @@ def test_remote_exchange_4d():
     ((2, 1), None), ((4, 1), None), ((2, 2), None), ((8, 1), None),
     # ghosts two bricks deep: (bricks, ghost depth)
     ((2, 2, 1), ((8, 8, 32), (16, 8, 0))),
-    ((2, 2, 1), ((4, 4, 32), (8, 8, 0)))],
+    ((2, 2, 1), ((4, 4, 32), (8, 8, 0))),
+    # rank 5, the oracle's whole-brick ghosts (tests/test_dim_generic.py's
+    # mesh, and the innermost axis distributed)
+    ((2, 1, 2, 1, 1), None), ((1, 1, 1, 1, 2), None)],
     ids=["mesh_shape0", "mesh_shape1", "mesh_shape2", "mesh_shape3",
          "mesh_shape4", "mesh_shape5", "2d-2x1", "2d-4x1", "2d-2x2",
-         "2d-8x1", "deep-16x8x0", "deep-8x8x0"])
+         "2d-8x1", "deep-16x8x0", "deep-8x8x0", "5d-2x1x2x1x1",
+         "5d-i-distributed"])
 def test_exchange_geometry_fuzz(mesh_shape, deep):
     """``tests/test_exchange.py:285-337`` over each of its meshes (a
     size-4 and a size-8 axis among them), 2-D meshes, and 3-D ghosts two
@@ -197,6 +201,10 @@ def test_exchange_geometry_fuzz(mesh_shape, deep):
     if deep is not None:
         bd, gz = deep
         dims = (2 * gz[0], 2 * gz[1], bd[2])
+    elif len(mesh_shape) == 5:       # the smallest rank-5 geometry
+        bd = (2, 2, 2, 2, 4)
+        dims = tuple(2 * b for b in bd)
+        gz = bd
     else:
         bd = tuple(int(rng.choice([2, 4])) for _ in mesh_shape[:-1]) + (
             int(rng.choice([4, 8])),)

@@ -150,11 +150,11 @@ def test_weak_mesh_run_with_a_validation_function():
         return True
 
     weak.run(**STEP3, mesh_shape=(1, 2, 1), validate=check, iters=1,
-             devices=["cpu", "cpu"], device="cuda")
+             devices=["cpu", "cpu"], device="cuda", backend="pencil")
     assert seen == [(2, 1)]
     with pytest.raises(RuntimeError, match="validation mismatch"):
         weak.run(**STEP3, mesh_shape=(2, 1, 1), validate=lambda s: False,
-                 iters=1, device="cpu")
+                 iters=1, device="cpu", backend="pencil")
 
 
 def test_weak_validation_catches_a_wrong_mesh_step():
@@ -178,8 +178,8 @@ def test_weak_validation_catches_a_wrong_mesh_step():
 def test_weak_cli_runs_a_mesh_on_cpu(capsys):
     weak.main(["-d", "8,8,8,16", "-b", "4,4,4,16", "-s", "mpi9pt", "-I",
                "4", "--fuse", "2", "--no-table-periodic", "--mesh",
-               "2,1,2,1", "--exchange", "put", "--iters", "1", "--device",
-               "cpu"])
+               "2,1,2,1", "--exchange", "put", "--backend", "pencil",
+               "--iters", "1", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "validated against array twin: OK" in out
     assert "mesh (2, 1, 2, 1)" in out

@@ -189,8 +189,9 @@ def _sys3(st):
      ValueError, "multi-slice meshes use"),
     (dict(dims=(16, 16, 32), stencil="s7pt", exchange="fused",
           backend="mxu"), ValueError, "uses exchange='shift'"),
-    (dict(dims=(16, 16), backend="jnp"), NotImplementedError,
-     "torch oracle"),
+    # the torch oracle runs since it was ported: err None runs the case
+    # against the reference
+    (dict(dims=(16, 32), bdims=(8, 16), backend="jnp"), None, None),
     (dict(dims=(16, 16, 32), stencil="s7pt", backend="mxu", mesh=(2, 1, 1),
           st_iter=9), ValueError, "exceeds ghost depth"),
     (dict(dims=(16, 16, 32), stencil=_aux3(port_st), field="in"),
@@ -206,9 +207,20 @@ def _sys3(st):
 def test_unported_options_raise_naming_their_item(kw, err, item):
     """What ``Problem`` refuses: the options of later slices name their
     ROADMAP item; the reference's own refusals raise its error, word for
-    word."""
+    word.  A case whose option has been ported since (``err`` None) runs
+    and matches the reference."""
     args = dict(stencil=box9(port_st), device="cpu")
     args.update(kw)
+    if err is None:
+        ref_args = dict(args, stencil=box9(ref_st))
+        del ref_args["device"]
+        ref, port = RefProblem(**ref_args), Problem(**args)
+        x = random_array((16, 32), np.float32, 2)
+        ref.init(array=x).step(2)
+        port.init(array=x).step(2)
+        assert port.describe()["backend"] == "jnp"
+        assert compare_arrays(port.result(), ref.result(), TOL)
+        return
     with pytest.raises(err, match=item) as port:
         Problem(**args)
     if err is ValueError:

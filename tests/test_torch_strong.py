@@ -269,7 +269,9 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(backend="jnp"), NotImplementedError, "torch oracle"),
+    # the torch oracle runs since it was ported (err None): cubic
+    # subdomains, validated against the global dense twin
+    (dict(backend="jnp", sdom=(16, 16, 16), bdim=(4, 4, 8)), None, None),
     # a mesh of more ranks than cards, with no devices given
     (dict(mesh_shape=(16, 1, 1), device="cuda", dom=(512, 32, 32)),
      ValueError, "CUDA devices"),
@@ -281,8 +283,14 @@ def test_cuda_without_a_card_raises():
         "kw1-NotImplementedError-multi-GPU",
         "kw2-NotImplementedError-i-bricked", "kw3-ValueError-exchange is",
         "kw4-ValueError-ghost depth", "kw5-ValueError-multiple of fuse"])
-def test_unported_and_bad_options_raise(kw, err, match):
+def test_unported_and_bad_options_raise(kw, err, match, capsys):
     args = dict(STEP, device="cpu")
     args.update(kw)
+    if err is None:
+        res = strong.run(**args, validate=True, iters=1)
+        assert "validated against global dense twin: OK" in \
+            capsys.readouterr().out
+        assert res["exchange_steps"] == 6
+        return
     with pytest.raises(err, match=match):
         strong.run(**args)

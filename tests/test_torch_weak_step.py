@@ -105,7 +105,9 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("kw,err,item", [
-    (dict(backend="jnp"), NotImplementedError, "torch oracle"),
+    # the torch oracle runs since it was ported (err None): validated
+    # against the dense twin and the reference composition
+    (dict(backend="jnp", bdim=(8, 8, 16)), None, None),
     # a mesh of more ranks than cards, with no devices given
     (dict(exchange="put", mesh_shape=(64, 1, 1), device="cuda"), ValueError,
      "CUDA devices"),
@@ -117,12 +119,12 @@ def test_cuda_without_a_card_raises():
      "fuse=1, no --overlap"),
     (dict(overlap=True), NotImplementedError, "pencil_sweep features"),
     (dict(profile_dir="trace"), NotImplementedError, "the rest"),
-    (dict(f64_validate=True), NotImplementedError, "torch oracle"),
+    (dict(f64_validate=True), None, None),
     (dict(mesh_shape=(16, 1, 1), device="cuda"), ValueError, "CUDA devices"),
 ], ids=["kw0-torch oracle", "kw1-multi-GPU", "kw2-kernel-level exchanges",
         "kw3-kernel-level exchanges", "kw4-pencil_sweep features",
         "kw5-the rest", "kw6-torch oracle", "kw7-multi-GPU"])
-def test_unported_options_raise(kw, err, item):
+def test_unported_options_raise(kw, err, item, capsys):
     """What the weak driver still refuses: the options of later slices, a
     mesh of more ranks than cards when no devices are given, and the
     fused exchange where the reference refuses it (the PUT, mesh and
@@ -131,8 +133,43 @@ def test_unported_options_raise(kw, err, item):
     ``tests/test_torch_fused_exchange.py``)."""
     args = dict(STEP, backend="pencil", device="cpu")
     args.update(kw)
+    if err is None:
+        weak.run(**args, iters=1)
+        out = capsys.readouterr().out
+        assert "validated against array twin: OK" in out
+        if args.get("f64_validate"):
+            assert "validated in float64 at 1e-06: OK" in out
+        else:
+            _check_oracle_step(args)
+        return
     with pytest.raises(err, match=item):
         weak.run(**args)
+
+
+def _check_oracle_step(args):
+    """The oracle step against the reference composition: one SHIFT
+    exchange over every axis, then the brick_apply iterations, the last
+    over the owned bricks only."""
+    from bricklib_tpu.codegen.jnp_backend import brick_apply
+
+    step, storage, dec = weak.build_step(
+        dims=args["dims"], bdim=args["bdim"], stencil="s7pt",
+        st_iter=args["st_iter"], backend="jnp", device="cpu")
+    ref = _reference_dec(dec)
+    d = exchange_shift_ref(jnp.asarray(storage.numpy().copy()), ref,
+                           ("x", "y", "z"), (1, 1, 1), interpret=True)
+    sd, prm = stencil_by_name("s7pt")[0], bench_params()
+    adj = jnp.asarray(ref.info.adj)
+    owned = jnp.asarray(np.arange(1, ref.sep_pos[1]))
+    for it in range(args["st_iter"]):
+        if it < args["st_iter"] - 1:
+            d = brick_apply(sd, {"bIn": d}, adj, prm)
+        else:
+            d = d.at[owned].set(brick_apply(sd, {"bIn": d}, adj, prm,
+                                            rows=owned))
+    own = dec.owned_mask()
+    assert compare_arrays(step(storage).numpy()[own], np.asarray(d)[own],
+                          1e-5)
 
 
 def test_bad_step_arguments_raise():
