@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .codegen.evaluate import resolve_const_from_params
-from .codegen.jnp_backend import brick_apply, offset_stack
+from .codegen.jnp_backend import CardTables, oracle_iterate
 from .codegen.ir import (PASS_FUSE_MAX, StencilIR, fold_linear,
                          generic_pass_estimate, vpu_pass_estimate)
 from .codegen.fused_exchange import pencil_sweep_fusedx
@@ -473,43 +473,23 @@ class Problem:
             raise ValueError("st_iter x radius exceeds ghost depth")
         dec, bd, nb = self.dec, self.bdims, self.dec.nbricks
         exchange_fn = shift_exchange(dec, self.mesh)
-        owned = np.arange(1, dec.sep_pos[1])
-        per_card: dict = {}
-
-        def tables(t):
-            """(adjacency, owned rows) of the ``t.shape[0]`` ranks stacked
-            in ``t``, on its device."""
-            key = (t.device, t.shape[0])
-            if key not in per_card:
-                per_card[key] = tuple(
-                    torch.from_numpy(offset_stack(a, t.shape[0], nb)).to(
-                        t.device) for a in (dec.info.adj, owned))
-            return per_card[key]
+        tables = CardTables(nb, adj=dec.info.adj,
+                            owned=np.arange(1, dec.sep_pos[1]))
 
         def one(states, auxv):
             for st in states:
                 exchange_fn(st)
             out = [[] for _ in states]
             for c, t0 in enumerate(states[0]):
-                adj, rows = tables(t0)
-                views = [st[c].view((-1,) + bd) for st in states]
+                tb = tables(t0.device, t0.shape[0])
                 avs = {n_: a[c].view((-1,) + bd)
                        for n_, a in zip(self.aux_names, auxv)}
                 with on_card(t0.device):
-                    for it in range(self.st_iter):
-                        vs = dict(avs)
-                        vs.update(zip(self.fields, views))
-                        ins = [{n_: vs[n_] for n_ in s_.inputs}
-                               for s_ in self.sdefs]
-                        if it < self.st_iter - 1:
-                            views = [brick_apply(s_, i_, adj, self.params)
-                                     for s_, i_ in zip(self.sdefs, ins)]
-                            continue
-                        outs = [brick_apply(s_, i_, adj, self.params,
-                                            rows=rows)
-                                for s_, i_ in zip(self.sdefs, ins)]
-                        for v, o in zip(views, outs):
-                            v.index_copy_(0, rows, o)
+                    views = oracle_iterate(
+                        self.sdefs, self.fields,
+                        [st[c].view((-1,) + bd) for st in states],
+                        tb["adj"], self.params, self.st_iter, aux=avs,
+                        owned=tb["owned"])
                 for f, v in enumerate(views):
                     out[f].append(v.view(t0.shape))
             return out

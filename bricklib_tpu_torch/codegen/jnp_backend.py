@@ -152,3 +152,44 @@ def offset_stack(a, count: int, stride: int) -> np.ndarray:
     base = np.arange(int(count), dtype=np.int64) * int(stride)
     return (a[None] + base.reshape((-1,) + (1,) * a.ndim)).reshape(
         (-1,) + a.shape[1:])
+
+
+class CardTables:
+    """Brick id tables (an adjacency, row lists) of one storage of
+    ``stride`` bricks, stacked for ``count`` storages on a card with
+    :func:`offset_stack` and uploaded once per (device, count)."""
+
+    def __init__(self, stride: int, **tables):
+        self.stride, self.tables, self._cache = stride, tables, {}
+
+    def __call__(self, device, count: int) -> dict:
+        key = (device, count)
+        if key not in self._cache:
+            self._cache[key] = {
+                k: torch.from_numpy(offset_stack(a, count, self.stride)).to(
+                    device) for k, a in self.tables.items()}
+        return self._cache[key]
+
+
+def oracle_iterate(sdefs, fields, views, adj, params, iters: int,
+                   aux: dict | None = None, owned=None) -> list:
+    """``iters`` ghost-inclusive ``brick_apply`` iterations of the stencils
+    ``sdefs`` (one per field of ``fields``, each view ``[nbricks,
+    *bdims]``), ``aux`` read-only fields by name; with ``owned`` (row ids),
+    the last iteration computes those bricks only and writes them into its
+    views in place, the others keeping their values (ref: api.py:657-676).
+    Returns the fields' new views."""
+    views = list(views)
+    for it in range(iters):
+        vs = dict(aux or {})
+        vs.update(zip(fields, views))
+        ins = [{n: vs[n] for n in s.inputs} for s in sdefs]
+        if owned is None or it < iters - 1:
+            views = [brick_apply(s, i, adj, params)
+                     for s, i in zip(sdefs, ins)]
+            continue
+        outs = [brick_apply(s, i, adj, params, rows=owned)
+                for s, i in zip(sdefs, ins)]
+        for v, o in zip(views, outs):
+            v.index_copy_(0, owned, o)
+    return views

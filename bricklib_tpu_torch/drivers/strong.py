@@ -41,11 +41,10 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 from ..bench.roofline import chain, copy_storage
 from ..bench.timing import mpi_statistics, time_mpi
-from ..codegen.jnp_backend import brick_apply, dense_apply, offset_stack
+from ..codegen.jnp_backend import CardTables, dense_apply, oracle_iterate
 from ..codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
 from ..comm import skin3d_good
 from ..comm.exchange import on_card
@@ -169,22 +168,17 @@ def _oracle_step(sd, plan, bdim, st_iter, exchange_fn):
     iterations, one per card over every subdomain of its ranks (the
     adjacency offset per subdomain, uploaded once per card)."""
     gname = next(iter(sd.inputs))
-    nb = plan.sdec.nbricks
-    adj: dict = {}
+    tables = CardTables(plan.sdec.nbricks, adj=plan.sdec.info.adj)
 
     def step_state(state):
         exchange_fn(state)
         out = []
         for t in state:
-            n = t.shape[0] * t.shape[1]
-            if (t.device, n) not in adj:
-                adj[t.device, n] = torch.from_numpy(offset_stack(
-                    plan.sdec.info.adj, n, nb)).to(t.device)
-            v = t.view((-1,) + bdim)
+            adj = tables(t.device, t.shape[0] * t.shape[1])["adj"]
             with on_card(t.device):
-                for _ in range(st_iter):
-                    v = brick_apply(sd, {gname: v}, adj[t.device, n],
-                                    bench_params())
+                (v,) = oracle_iterate((sd,), (gname,),
+                                      (t.view((-1,) + bdim),), adj,
+                                      bench_params(), st_iter)
             out.append(v.view(t.shape))
         return out
 

@@ -1906,7 +1906,7 @@ def star_nd(nd: int, two: bool = False, corner: bool = False):
                                                             a2=1, a4=1)
     if two:
         h = Grid("aux", nd)
-        e = e + 0.11 * at(h, a2=1) - 0.05 * h(*idx)
+        e = e + 0.11 * at(h, a2=1) - 0.05 * at(h, a4=-1, a0=1)
     o(*idx).assign(e)
     return load_stencil_module({"STENCIL": [o]})[0]
 
@@ -2116,11 +2116,27 @@ def oracle_paths() -> list:
     ]
 
 
+def reach(region, offsets) -> int:
+    """Cells of the union of a box of extents ``region`` shifted by each
+    of ``offsets``: the input a stencil's taps reach from that box (a
+    star's reach is the box and one face slab per axis and sign)."""
+    import numpy as np
+
+    offs = np.asarray(offsets, np.int64).reshape(len(offsets), -1)
+    lo, hi = np.maximum(-offs.min(0), 0), np.maximum(offs.max(0), 0)
+    mask = np.zeros([n + a + b for n, a, b in zip(region, lo, hi)], bool)
+    for o in offs:
+        mask[tuple(slice(a + d, a + d + n)
+                   for a, d, n in zip(lo, o, region))] = True
+    return int(mask.sum())
+
+
 def phase_times_nd(card: str) -> dict:
     """K12 at the full 5-D decomposition beside its plain version and its
-    bound: the computed region grown by the radius read once and the
-    region written once, 2 f32 operations per folded tap and output
-    element.  No single PyTorch call computes it (no 5-D convolution)."""
+    bound: per input, the cells its taps reach from the computed region
+    (whole i rows: i wraps inside the row) read once, and the region
+    written once; 2 f32 operations per folded tap and output element.
+    No single PyTorch call computes it (no 5-D convolution)."""
     import numpy as np
     import torch
 
@@ -2131,14 +2147,17 @@ def phase_times_nd(card: str) -> dict:
     table = torch.from_numpy(plan.table).cuda()
     counts = [b - a for a, b in plan.ranges]
     region = [c * b for c, b in zip(counts, plan.bdims)] + [plan.bdims[-1]]
-    grown = [n + lo + hi for n, lo, hi in zip(region[:-1], plan.lo,
-                                              plan.hi)] + [region[-1]]
+    offs = plan.taps.offsets
+    field = (plan.taps.inputs if plan.taps.inputs is not None
+             else np.zeros(len(offs), np.int64))
+    nread = region[-1] * sum(reach(region[:-1], offs[field == f, :-1])
+                             for f in range(len(xs)))
     nout = float(np.prod(region))
     r = row(cuda_ms(lambda: fn(*xs), K12_TIMED),
             cuda_ms(lambda: pencil_sweep_plain(xs, table, plan), 2),
-            4 * (len(xs) * float(np.prod(grown)) + nout),
-            2 * len(plan.taps.coeffs) * nout, None)
-    print_times(card, "K12", f"5-D star {DIMS5}", r)
+            4 * (nread + nout), 2 * len(plan.taps.coeffs) * nout, None)
+    print_times(card, "K12", f"5-D star {DIMS5}, {nread} input elements "
+                f"reached, {int(nout)} written", r)
     del xs
     torch.cuda.empty_cache()
     return {"K12": r}

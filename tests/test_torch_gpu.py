@@ -59,6 +59,7 @@ from bricklib_tpu_torch.ooc import ooc_sweep
 from bricklib_tpu_torch.stencils import bench_params, stencil_by_name
 
 from torch_2d_stencils import BUILDERS, PARAMS, two_inputs_3d
+from torch_nd_stencils import star_nd
 
 pytestmark = pytest.mark.gpu
 
@@ -554,29 +555,6 @@ def test_fused_weak_step_and_problem_on_card_match_cpu(cuda):
         assert compare_arrays(got, want, 1e-5) and np.isfinite(got).all()
 
 
-def _star_nd(nd, two=False, corner=False):
-    idx = [st.Index(a) for a in range(nd)]
-    g, o = st.Grid("in", nd), st.Grid("out", nd)
-
-    def at(grid, moves):
-        ii = list(idx)
-        for a, d in moves.items():
-            ii[a] = idx[a] + d
-        return grid(*ii)
-
-    e = 0.3 * g(*idx)
-    for a in range(nd):
-        for d in (1, -1):
-            e = e + (0.05 + 0.01 * a + 0.003 * d) * at(g, {a: d})
-    if corner:
-        e = e + 0.07 * at(g, {0: 1, 3: 1, 4: -1})
-    if two:
-        h = st.Grid("aux", nd)
-        e = e + 0.11 * at(h, {2: 1}) - 0.05 * h(*idx)
-    o(*idx).assign(e)
-    return st.load_stencil_module({"STENCIL": [o]})[0]
-
-
 @pytest.mark.parametrize("dims,bd,kw,ranges", [
     ((4, 4, 8, 8, 16), (2, 2, 4, 4, 16), {}, None),
     ((4, 4, 8, 8, 32), (2, 2, 4, 4, 32), dict(two=True, corner=True), None),
@@ -593,8 +571,8 @@ def test_sweep_nd_kernel_matches_plain(cuda, dims, bd, kw, ranges):
     nd = len(dims)
     dec = BrickDecomp(dims=dims, ghost_depth=bd[:-1] + (0,),
                       bdims=bd).initialize(skinlist_by_name("good", nd))
-    fn = pencil_sweep_nd(_star_nd(nd, **kw), dec.grid, bd, dec.nbricks, {},
-                         ranges=ranges)
+    fn = pencil_sweep_nd(star_nd(st, nd, **kw), dec.grid, bd, dec.nbricks,
+                         {}, ranges=ranges)
     xs = [torch.from_numpy(random_array((dec.nbricks,) + bd, np.float32,
                                         s)).to(cuda)
           for s in range(2 if kw.get("two") else 1)]
@@ -619,7 +597,7 @@ def test_oracle_paths_on_card_match_cpu(cuda):
     own = dec.owned_mask()
     assert compare_arrays(step_c(st_c)[0].cpu().numpy()[:, own],
                           step_h(st_h)[0].numpy()[:, own], 1e-5)
-    pk = dict(dims=(4, 4, 4, 4, 8), stencil=_star_nd(5),
+    pk = dict(dims=(4, 4, 4, 4, 8), stencil=star_nd(st, 5),
               bdims=(2, 2, 2, 2, 4), mesh=(1, 1, 1, 1, 2), st_iter=2)
     got = Problem(devices=[cuda] * 2, **pk).init(seed=5).step(2)
     want = Problem(device="cpu", **pk).init(seed=5).step(2)

@@ -27,35 +27,15 @@ from bricklib_tpu.core import compare_arrays
 from bricklib_tpu_torch import st as port_st
 from bricklib_tpu_torch.codegen import pencil_kernel_nd as nd
 from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_plain
+from torch_nd_stencils import nd_twin, star_nd
 
 DIMS, BD = (4, 4, 8, 8, 16), (2, 2, 4, 4, 16)
 TOL = 1e-5
 
 
-def stencil5(st, two=False, corner=False, radius=1):
-    """The 11-point 5-D star (distinct coefficients); ``two`` adds taps of
-    a second input ``aux``; ``corner`` adds taps that cross three axes."""
-    idx = [st.Index(a) for a in range(5)]
-    g, o = st.Grid("in", 5), st.Grid("out", 5)
-
-    def at(grid, moves):
-        ii = list(idx)
-        for a, d in moves.items():
-            ii[a] = idx[a] + d
-        return grid(*ii)
-
-    e = 0.3 * g(*idx)
-    for a in range(5):
-        for d in (radius, -1):
-            e = e + (0.05 + 0.01 * a + 0.003 * d) * at(g, {a: d})
-    if corner:
-        e = e + 0.07 * at(g, {0: 1, 3: 1, 4: -1}) \
-            - 0.02 * at(g, {1: -1, 2: 1, 4: 1})
-    if two:
-        h = st.Grid("aux", 5)
-        e = e + 0.11 * at(h, {2: 1}) - 0.05 * at(h, {4: -1, 0: 1})
-    o(*idx).assign(e)
-    return st.load_stencil_module({"STENCIL": [o]})[0]
+def stencil5(st, **kw):
+    """The 11-point 5-D star of :func:`torch_nd_stencils.star_nd`."""
+    return star_nd(st, 5, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -212,8 +192,9 @@ def test_kernel_caps_and_devices(dec):
 
 
 def test_plain_two_inputs_by_hand(dec):
-    """The multi-input plain sweep against dense tensor code: each input
-    gathered to its dense block, one slice per tap, rolled along i."""
+    """The multi-input plain sweep against dense tensor code
+    (:func:`torch_nd_stencils.nd_twin`): each input gathered to its dense
+    block, one slice per tap, rolled along i."""
     from bricklib_tpu_torch.core.setup import from_bricks
 
     fn = nd.pencil_sweep_nd(stencil5(port_st, two=True, corner=True),
@@ -221,17 +202,9 @@ def test_plain_two_inputs_by_hand(dec):
     xs = [torch.from_numpy(a) for a in _inputs(dec, 2)]
     got = fn(*xs)
     own = from_bricks(got.view(dec.nbricks, -1), dec.interior_grid(), BD)
-    dense = [from_bricks(x.view(dec.nbricks, -1), dec.grid, BD) for x in xs]
-    gz = BD[:-1] + (0,)
-    want = 0
-    plan = fn.plan
-    for offs, c, f in zip(plan.taps.offsets.tolist(),
-                          plan.taps.coeffs.tolist(),
-                          plan.taps.inputs.tolist()):
-        v = dense[f][tuple(slice(gz[a] + offs[a], gz[a] + offs[a] + DIMS[a])
-                           for a in range(4))]
-        want = want + c * torch.roll(v, -offs[4], dims=4)
+    want = nd_twin(xs, fn.plan, dec)
     assert compare_arrays(own.numpy(), want.numpy(), TOL)
+    plan = fn.plan
     direct = pencil_sweep_plain(xs, torch.from_numpy(plan.table), plan)
     w = plan.written_bricks()
     assert torch.equal(direct[w], got[w])
