@@ -38,7 +38,7 @@ _I64 = ctypes.c_longlong
 
 # argtypes of every C entry point: pointers and the stream as c_void_p
 SIGNATURES = {
-    "bt_pencil_sweep": [_VOID, _VOID, _VOID] + [_INT] * 20
+    "bt_pencil_sweep": [_VOID] * 4 + [_INT] * 30
                        + [_VOID, _VOID, _INT, _INT, _VOID],
     "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 27
                           + [_VOID, _VOID, _INT, _INT, _VOID],

@@ -372,7 +372,8 @@ class Problem:
                     "taps": (None if plan.taps is None
                              else [len(plan.taps.coeffs)])}
             if plan.taps is not None and nd == 3:
-                info["tile_i"], info["smem_bytes"] = plan.tile()
+                sp = plan.stream()
+                info["tile_i"], info["smem_bytes"] = sp.ti, sp.smem_bytes
             elif plan.taps is not None:
                 (info["tile_w"], info["tile_i"],
                  info["smem_bytes"]) = tile_4d(plan)

@@ -7,7 +7,8 @@ a grid table ``T[GK, GJ]`` with one pencil brick (the whole i extent) per
 (k, j) cell; the sweep computes the brick rows ``k_range`` x pencils
 ``j_range`` and applies ``fuse`` = F stencil iterations per pass over
 device memory.  The semantics, which :func:`pencil_sweep_plain` spells out
-and kernel K1 (``csrc/pencil_sweep.cu``) reproduces:
+and kernel K1 (``csrc/pencil_sweep.cu``, launched as
+:meth:`SweepPlan.stream` plans it) reproduces:
 
 - level 0 at element (kk, jj, i) is ``X[T[clip(kk // BK), clip(jj // BJ)],
   kk % BK, jj % BJ, i]``: rows and pencils beyond the table clamp to the
@@ -32,6 +33,7 @@ checked as the reference checks them and change nothing.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -44,10 +46,247 @@ from .ir import StencilIR
 from .taps import TapTable, as_ir, params_from_reference
 
 FEATURES_ITEM = "remaining pencil_sweep features"
+# sweep_block (csrc/pencil_sweep.cuh, kernel K11's body): threads and
+# shared memory per block (76 KiB lets three blocks share one SM)
 KERNEL_THREADS = 256
-# shared memory per block: 76 KiB lets three blocks share one SM
 SMEM_BUDGET = 76 * 1024
 MAX_TILE_I = 128
+# K1's k-streaming blocks (csrc/pencil_stream.cuh) on the H100: threads per
+# block, the shared memory one block may take (227 KB) and one SM holds
+# (228 KB, 1 KB of it reserved per resident block), and the SMs to fill
+STREAM_THREADS = 512
+# output rows a thread computes at once (BT_UR in pencil_stream.cuh)
+STREAM_ROWS = 4
+STREAM_SMEM_BUDGET = 232448
+SM_SMEM, SM_BLOCK_RESERVE, SM_THREADS, SM_COUNT = 233472, 1024, 2048, 132
+# the planner's costs, in shared-memory accesses of a tap (an SM makes ~32 a
+# clock): one level-0 float loaded (through L2 or from device memory), a
+# step's fixed work (its level-0 issue, barrier and per-level set-up), one
+# barrier between levels, and a block's start (its brick table and the
+# first planes' latency).  The step's cost is fitted to s7pt fuse=4 sweeps
+# of 512^3 on the H100 (bench/k1_regimes.py --footprints): it makes the
+# widest footprint that fills whole waves of SMs the cheapest.
+LOAD_COST, STEP_COST, SYNC_COST, BLOCK_COST = 2, 49152, 4096, 65536
+MAX_PENCILS = 8
+PLANE_SPAN = 1 << 20
+# the tap layouts K1 compiles in (csrc/tap_layouts.cuh): under one, the
+# taps' offsets are compile-time constants and a value several taps and
+# rows read is one load
+STREAM_LAYOUTS = ("s7pt", "mpi125pt")
+
+
+@lru_cache(maxsize=1)
+def _layouts() -> tuple:
+    from ..stencils import bench_params
+
+    return tuple(params_from_reference(bench_params(), name).offsets.tolist()
+                 for name in STREAM_LAYOUTS)
+
+
+def stream_loads(offsets) -> float:
+    """Shared-memory loads per output of one K1 level: under a compiled
+    tap layout, the distinct (dk, row, di) that :data:`STREAM_ROWS` rows
+    of a column read, per row; otherwise one per tap."""
+    offs = np.asarray(offsets).reshape(-1, 3).tolist()
+    if offs not in _layouts():
+        return float(len(offs))
+    vals = {(dk, dj + u, di) for dk, dj, di in offs
+            for u in range(STREAM_ROWS)}
+    return len(vals) / STREAM_ROWS
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """K1's launch as :meth:`SweepPlan.stream` plans it.  The output brick
+    rows stream in chunks of ``kch`` rows, ``pj`` pencils and ``ti`` i
+    lanes per block, level 0 loaded with an i margin of ``h`` lanes per
+    side in pieces of ``pw`` floats, ``d`` planes ahead.  ``edge_lo`` /
+    ``edge_hi``: the first / last chunk's levels reach below / above the
+    table in k, and each block keeps ``stash_lo`` / ``stash_hi`` floats
+    of device memory for the clamp's source planes there.  Bit f of
+    ``skew`` (1 <= f < F): levels f and f+1 are skewed by a plane, with no
+    barrier between them and a plane more in level f's ring.
+    ``smem_bytes`` is the launch's dynamic shared memory."""
+
+    ranges: tuple
+    bdims: tuple
+    batch: int
+    kch: int
+    pj: int
+    ti: int
+    h: int
+    pw: int
+    d: int
+    edge_lo: bool
+    edge_hi: bool
+    stash_lo: int
+    stash_hi: int
+    skew: int
+    smem_bytes: int
+
+    @property
+    def nchunk(self) -> int:
+        (K0, K1), _ = self.ranges
+        return -(-(K1 - K0) // self.kch)
+
+    @property
+    def njg(self) -> int:
+        (J0, J1) = self.ranges[1]
+        return -(-(J1 - J0) // self.pj)
+
+    @property
+    def nit(self) -> int:
+        return self.bdims[2] // self.ti
+
+    @property
+    def nstream(self) -> int:
+        return self.batch * self.nchunk * self.njg * self.nit
+
+    def stash_total(self) -> int:
+        """Floats of the stash the launch needs: one slice per (subdomain,
+        pencil group, i tile)."""
+        return (self.batch * self.njg * self.nit
+                * (self.stash_lo + self.stash_hi))
+
+    def blocks(self) -> list:
+        """Every block of the launch in grid order, decoded as the kernel
+        decodes it: ``(subdomain, (k0, k1), (j0, j1), (i0, i1), edges)``
+        in brick rows, pencils and i lanes; ``edges`` names the table
+        edges ("low", "high") the block's chunk handles."""
+        (K0, K1), (J0, J1) = self.ranges
+        out = []
+        for b in range(self.nstream):
+            it, b = b % self.nit, b // self.nit
+            jg, b = b % self.njg, b // self.njg
+            ch, sub = b % self.nchunk, b // self.nchunk
+            k0, j0 = K0 + ch * self.kch, J0 + jg * self.pj
+            edges = (("low",) * (self.edge_lo and ch == 0)
+                     + ("high",) * (self.edge_hi
+                                    and ch == self.nchunk - 1))
+            out.append((sub, (k0, min(k0 + self.kch, K1)),
+                        (j0, min(j0 + self.pj, J1)),
+                        (it * self.ti, (it + 1) * self.ti), edges))
+        return out
+
+
+def stash_floats(bdims, fuse: int, lo, hi, pj: int, ti: int,
+                 h: int) -> tuple[int, int]:
+    """Floats of one block's stash per k edge (low, high): level f's (1 to
+    F-1) clamp sources, ``(F - f) * klo`` (``khi``) planes of ``(pj * BJ +
+    (F - f) * rj)`` rows of ``ti + 2h`` floats."""
+    rj, rw, wjm = lo[1] + hi[1], ti + 2 * h, pj * bdims[1]
+    per = [(wjm + (fuse - f) * rj) * rw * (fuse - f)
+           for f in range(1, fuse)]
+    return lo[0] * sum(per), hi[0] * sum(per)
+
+
+def stream_smem(bdims, fuse: int, lo, hi, kch: int, pj: int, ti: int,
+                h: int, d: int, skew: int = 0) -> int:
+    """Dynamic shared memory of one k-streaming block, laid out as
+    ``pencil_stream.cuh`` lays it out: the level-0 ring (``rk + 1 + d``
+    planes), the rings of levels 1 to F-1 (``rk + 1`` planes each, one
+    more where ``skew`` has the level's bit), every
+    plane ``(pj * BJ + (F - f) * rj)`` rows of ``ti + 2h`` floats, ``h``
+    floats before them and :func:`stream_slack` after, the count rounded
+    up to even; then the brick table (``(kch + 2) x (pj + 2)`` 64-bit
+    offsets), two ints per level-0 row and two buffers of ``pj * BJ``
+    64-bit output row offsets."""
+    _, BJ, _ = bdims
+    rk, rj = lo[0] + hi[0], lo[1] + hi[1]
+    rw, wjm = ti + 2 * h, pj * BJ
+    n = (rk + 1 + d) * (wjm + fuse * rj) * rw
+    n += sum((rk + 1 + (skew >> f & 1)) * (wjm + (fuse - f) * rj) * rw
+             for f in range(1, fuse))
+    n = (h + n + stream_slack(rw, h, BJ) + 1) & ~1
+    return (4 * n + 8 * (kch + 2) * (pj + 2) + 8 * (wjm + fuse * rj)
+            + 16 * wjm)
+
+
+def stream_slack(rw: int, h: int, bj: int) -> int:
+    """Floats after the rings that a level may read past its source plane
+    (``stream_slack`` in ``pencil_stream.cuh``): a tap's reach and 32
+    lanes, and with bricks less than :data:`STREAM_ROWS` deep in j a
+    quad's rows beyond a block's."""
+    return h + 40 + max(STREAM_ROWS - bj, 0) * rw
+
+
+@lru_cache(maxsize=256)
+def _stream_plan(bdims, ranges, table_k: int, fuse: int, lo, hi,
+                 batch: int, ntaps: int, loads: float | None = None,
+                 budget: int = STREAM_SMEM_BUDGET) -> StreamPlan:
+    BK, BJ, BI = bdims
+    (K0, K1), (J0, J1) = ranges
+    F = fuse
+    edge_lo = K0 == 0 and lo[0] > 0
+    edge_hi = K1 == table_k and hi[0] > 0
+    if F > 1 and (edge_lo or edge_hi) and table_k < 2:
+        raise ValueError("kernel K1 clamps k at the table's edges on tables "
+                         f"of two brick rows or more, got {table_k}")
+    nrows, npen = K1 - K0, J1 - J0
+    pw = 4 if BI % 4 == 0 else 1
+    h = -(-F * max(lo[2], hi[2]) // pw) * pw
+    rk, rj, ri = (a + b for a, b in zip(lo, hi))
+    # a chunk's planes from its first brick row stay below 2^20 (the
+    # kernel's division-free ring slots; BT_PLANE_SPAN)
+    chunks = sorted(c for c in {-(-nrows // n) for n in range(1, nrows + 1)}
+                    if (c + 2) * BK + F * (lo[0] + hi[0] + 1)
+                    < PLANE_SPAN)
+    # a lone level of few taps is bound by device memory: two planes ahead
+    lookaheads = (2,) if F == 1 and ntaps < 40 else (2, 1)
+    # skewed level boundaries: the top m of them (the highest levels' rings
+    # are the smallest, so their extra planes cost the least)
+    skews = [((1 << F) - 1) ^ ((1 << (F - m)) - 1) for m in range(F)]
+    # shared-memory accesses per element of a level: its loads (one per tap
+    # without a compiled layout), one store, a tap's address per quad
+    per_elem = (ntaps if loads is None else loads) + 1 + ntaps / STREAM_ROWS
+
+    def quads(rows: int) -> int:
+        return -(-rows // STREAM_ROWS) * STREAM_ROWS
+
+    best = None
+    for ti in (t for t in range(pw, BI + 1, pw) if BI % t == 0):
+        rw = ti + 2 * h
+        for pj in range(1, min(npen, MAX_PENCILS) + 1):
+            wj = pj * BJ
+            for kch in chunks:
+                L = kch * BK
+                # levels 1 to F-1 over whole rows of rw columns, level F
+                # over 32-lane chunks of the output lanes, in quads of rows
+                ucf = -(-ti // 32)
+                work = (LOAD_COST * (wj + F * rj) * rw * (L + F * rk)
+                        + (sum(quads(wj + (F - f) * rj) * rw
+                               * (L + (F - f) * rk) for f in range(1, F))
+                           + quads(wj) * ucf * 32 * L) * per_elem)
+                nblocks = (batch * -(-nrows // kch) * -(-npen // pj)
+                           * (BI // ti))
+                for d, skew in ((d, m) for d in lookaheads for m in skews):
+                    smem = stream_smem(bdims, F, lo, hi, kch, pj, ti, h, d,
+                                       skew)
+                    if smem > budget:
+                        continue
+                    # per step its fixed work and a barrier per unskewed
+                    # level boundary
+                    nsk = bin(skew).count("1")
+                    stall = ((L + F * rk + nsk)
+                             * (STEP_COST + (F - 1 - nsk) * SYNC_COST)
+                             + BLOCK_COST)
+                    bps = min(SM_SMEM // (smem + SM_BLOCK_RESERVE),
+                              SM_THREADS // STREAM_THREADS)
+                    waves = -(-nblocks // (SM_COUNT * bps))
+                    # an SM runs its bps blocks side by side: a wave takes
+                    # bps blocks' work, and one block's barriers and start
+                    # (the others' work fills them); lookahead 2 breaks ties
+                    cost = (waves * (bps * work + stall), -d, -ti, kch)
+                    if best is None or cost < best[0]:
+                        best = (cost, (kch, pj, ti, d, skew, smem))
+    if best is None:
+        raise ValueError(f"no k-streaming block of bricks {bdims} fits "
+                         f"{budget} bytes of shared memory at "
+                         f"fuse={F}")
+    kch, pj, ti, d, skew, smem = best[1]
+    st_lo, st_hi = stash_floats(bdims, F, lo, hi, pj, ti, h)
+    return StreamPlan(ranges, bdims, batch, kch, pj, ti, h, pw, d, edge_lo,
+                      edge_hi, st_lo * edge_lo, st_hi * edge_hi, skew, smem)
 
 
 @dataclass(frozen=True)
@@ -84,7 +323,8 @@ class SweepPlan:
              for s in range(self.batch)]))
 
     def tile(self) -> tuple[int, int]:
-        """(i lanes per block, shared-memory bytes) for kernel K1: the
+        """(i lanes per block, shared-memory bytes) for kernel K11's block
+        body (``sweep_block``, K1's first design): the
         widest power-of-two i tile dividing BI whose level-0 and level-1
         tiles and level-0 row offsets fit :data:`SMEM_BUDGET`."""
         BK, BJ, BI = self.bdims
@@ -103,6 +343,19 @@ class SweepPlan:
             ti //= 2
         raise ValueError(f"no i tile of BI={BI} fits {SMEM_BUDGET} bytes "
                          f"of shared memory at fuse={F}")
+
+    def stream(self) -> StreamPlan:
+        """Kernel K1's launch (3-D, linear taps): the block footprint (k
+        chunk, pencils, i tile, lookahead) of least estimated cost,
+        shared-memory accesses and level-0 loads per wave of blocks over
+        :data:`SM_COUNT` SMs, whose shared memory fits
+        :data:`STREAM_SMEM_BUDGET`, and the stash of the chunks at the
+        table's k edges."""
+        return _stream_plan(tuple(self.bdims), tuple(self.ranges),
+                            self.table.shape[0], self.fuse, tuple(self.lo),
+                            tuple(self.hi), self.batch,
+                            len(self.taps.coeffs),
+                            stream_loads(self.taps.offsets))
 
 
 def _is_f32(dtype) -> bool:
@@ -204,8 +457,33 @@ def pencil_sweep_plain(x, table: torch.Tensor,
 
 def pencil_sweep_kernel(x: torch.Tensor, table: torch.Tensor,
                         plan: SweepPlan) -> torch.Tensor:
-    """Launch kernel K1 on CUDA tensors; returns a fresh output whose
-    unwritten bricks are undefined."""
+    """Launch kernel K1 on CUDA tensors, as :meth:`SweepPlan.stream`
+    plans it; returns a fresh output whose unwritten bricks are
+    undefined."""
+    return _launch_stream(x, table, plan, None)
+
+
+def _stream_footprint(plan: SweepPlan, kch: int, pj: int, ti: int, d: int,
+                      skew: int) -> StreamPlan:
+    """The launch of ``plan`` at another footprint (chunk, pencils, i
+    tile, lookahead, skewed level boundaries), its shared memory and stash
+    counted from that footprint; for measuring the planner's choice
+    against its neighbours."""
+    sp = plan.stream()
+    lo, hi = stash_floats(plan.bdims, plan.fuse, plan.lo, plan.hi, pj, ti,
+                          sp.h)
+    return StreamPlan(sp.ranges, sp.bdims, sp.batch, kch, pj, ti, sp.h,
+                      sp.pw, d, sp.edge_lo, sp.edge_hi, lo * sp.edge_lo,
+                      hi * sp.edge_hi, skew,
+                      stream_smem(plan.bdims, plan.fuse, plan.lo, plan.hi,
+                                  kch, pj, ti, sp.h, d, skew))
+
+
+def _launch_stream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
+                   sp: StreamPlan | None) -> torch.Tensor:
+    """K1 at ``sp``'s footprint (``None``: the planner's).  The shared
+    memory and the stash are counted again from the footprint, so no
+    launch takes less than its layout needs."""
     if x.device.type != "cuda" or table.device != x.device:
         raise ValueError("kernel K1 takes storage and table on one CUDA "
                          f"device, got {x.device} and {table.device}")
@@ -224,26 +502,51 @@ def pencil_sweep_kernel(x: torch.Tensor, table: torch.Tensor,
                          f"[{GK}, {GJ}]")
     if len(plan.taps.coeffs) > 128:
         raise ValueError("kernel K1 takes at most 128 taps")
-    ti, smem = plan.tile()
+    sp = (plan.stream() if sp is None
+          else _stream_footprint(plan, sp.kch, sp.pj, sp.ti, sp.d, sp.skew))
+    if sp.nstream > 2 ** 31 - 1:
+        raise ValueError("kernel K1 takes at most 2^31 - 1 blocks")
     (K0, K1), (J0, J1) = plan.ranges
-    if plan.batch * (K1 - K0) > 65535:
-        raise ValueError("kernel K1 takes at most 65535 batch x k rows")
     (klo, jlo, ilo), (khi, jhi, ihi) = plan.lo, plan.hi
     offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
     coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
     out = torch.empty_like(x)
+    stream = _build.stream_handle(x.device)
+    stash = _stash(x.device, stream, sp.stash_total())
+    # 16-byte pieces need 16-byte aligned storage (a view may start anywhere)
+    pw = sp.pw if x.data_ptr() % 16 == 0 else 1
     err = _build.library().bt_pencil_sweep(
         x.data_ptr(), out.data_ptr(), table.data_ptr(),
+        None if stash is None else stash.data_ptr(),
         GK, GJ, BK, BJ, BI, K0, K1, J0, J1, plan.fuse,
-        klo, khi, jlo, jhi, ilo, ihi, ti, plan.batch, plan.batch_stride,
-        len(coeffs), offs.ctypes.data, coeffs.ctypes.data, smem,
-        KERNEL_THREADS, _build.stream_handle(x.device))
+        klo, khi, jlo, jhi, ilo, ihi, plan.batch, plan.batch_stride,
+        sp.kch, sp.pj, sp.ti, sp.h, pw, sp.d, int(sp.edge_lo),
+        int(sp.edge_hi), sp.stash_lo, sp.stash_hi, sp.skew, len(coeffs),
+        offs.ctypes.data, coeffs.ctypes.data, sp.smem_bytes, STREAM_THREADS,
+        stream)
     _build.check(err, "pencil_sweep")
     pencil_sweep_kernel.launches += 1
     return out
 
 
 pencil_sweep_kernel.launches = 0
+
+# K1's stash per (device, stream), kept between launches: launches on one
+# stream run in order, and a fresh stash per call between the outputs'
+# large blocks can make the allocator call cudaMalloc inside a timed loop
+_stashes: dict = {}
+
+
+def _stash(device, stream: int, n: int):
+    """A float32 device buffer of at least ``n`` elements for K1's stash
+    (None for none)."""
+    if n == 0:
+        return None
+    t = _stashes.get((device, stream))
+    if t is None or t.numel() < n:
+        t = _stashes[(device, stream)] = torch.empty(
+            n, dtype=torch.float32, device=device)
+    return t
 
 
 def pencil_sweep(stencil, grid: np.ndarray,

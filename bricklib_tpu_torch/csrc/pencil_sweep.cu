@@ -14,77 +14,131 @@
 // T[K0:K1, J0:J1] only; every other brick of `out` is left untouched.
 // With a batch of B subdomains (the strong-scaling stack), subdomain s
 // reads and writes through the same table with s * stride added to every
-// brick id: one more grid dimension, folded into blockIdx.z.
+// brick id.
 //
 // What bounds it on the card.  Device-memory bytes, in the end: an f32
 // 7-point sweep does 14 flops per 8 bytes moved, far below the ~20
 // flops/byte at which the H100's f32 units would bound it, and F fused
-// levels carry F stencil iterations per pass over device memory.  In this
-// first design the recomputed halo and the shared-memory work per element
-// bound it well before the bytes do (PERF.md).
+// levels carry F stencil iterations per pass over device memory.  Inside
+// the SM the limit is shared memory: every tap of every level is one
+// shared-memory load (7 per element at 7 points, 125 at 125), so what a
+// design recomputes or reloads costs shared-memory cycles first.  The
+// first design (one block per output brick row, the level-0 tile grown by
+// F radii on every side, tiles shrinking per level: sweep_block in
+// pencil_sweep.cuh) recomputed 2.2 times the useful work at fuse=4, half
+// of it the k halo, and ran at 6.6% of its bound (PERF.md).
 //
-// What the design does about it.  One block owns one output brick row,
-// one output pencil and TI lanes of i, loads its level-0 tile once and
-// computes every level in shared memory (pencil_sweep.cuh says how).  The
-// price is the halo: neighbouring blocks load overlapping level-0 tiles
-// (mostly from L2) and recompute the overlapping parts of each level.  A streaming k loop, TMA and register
-// blocking are left for later work.
+// What this design does about it (pencil_stream.cuh says how).  A block
+// streams a chunk of brick rows in k as a wavefront over the fused levels,
+// each level a ring of planes in shared memory, so the k halo is loaded and
+// computed once per chunk; it takes several pencils in j and as wide an i
+// tile as shared memory allows (up to 227 KB a block, 512 threads; the
+// planner, SweepPlan.stream in codegen/pencil_kernel.py, trades the
+// footprint against occupancy and the grid's fill of 132 SMs); level 0
+// arrives by 16-byte cp.async D planes ahead of use; threads take fixed
+// elements of each plane with no division, four rows of a column each,
+// and under a tap layout compiled in (tap_layouts.cuh: the 7-point star,
+// the 125-point cube; the coefficients stay parameters) a value that
+// several taps and rows read is one load kept in a register: the star
+// reads 22 values per 4 outputs instead of 28, the cube 200 instead of
+// 500.  Each output's sum keeps its tap order.
+//
+// The table's k edges.  Where K0 == 0 (or K1 == GK), the intermediate
+// levels' k clamp replaces a plane below (above) the table by the plane
+// BK higher (lower): a k-increasing stream has not computed the first yet,
+// and the second has left its ring.  The blocks whose chunk reaches an edge
+// keep those source planes in a stash in device memory, a pre-roll over
+// the first brick row computing the low ones first (pencil_stream.cuh).
+// So every brick row streams; the per-brick-row body sweep_block
+// (pencil_sweep.cuh) is K11's alone.
 
-#include "pencil_sweep.cuh"
+#include "pencil_stream.cuh"
 
-// One block per (subdomain and output brick row, output pencil, i tile):
-// the body is sweep_block (pencil_sweep.cuh), which K11 shares.
-template <int NT>
-__global__ void pencil_sweep_kernel(const float* __restrict__ x,
-                                    float* __restrict__ out,
-                                    const int* __restrict__ table,
-                                    SweepGeom g, SweepTaps taps) {
-    extern __shared__ float smem[];
-    const int sub = blockIdx.z / g.KC;
-    const int kout = g.K0 + (blockIdx.z - sub * g.KC);
-    sweep_block<NT, false>(x, out, table, g, taps, sub, kout,
-                           g.J0 + blockIdx.y, blockIdx.x * g.TI, smem);
+// One block of 512 threads per SM at most (shared memory allows no more
+// at the planner's footprints), so a thread may hold 128 registers.
+template <class L>
+__global__ void __launch_bounds__(BT_STREAM_THREADS, 1)
+pencil_sweep_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    const int* __restrict__ table, float* stash,
+                    StreamGeom g, SweepTaps taps) {
+    extern __shared__ __align__(16) float smem[];
+    stream_block<L>(x, out, table, g, taps, blockIdx.x, smem, stash);
 }
 
-template <int NT>
-static cudaError_t launch(dim3 grid, int threads, int smem_bytes,
+template <class L>
+static cudaError_t launch(int blocks, int threads, int smem_bytes,
                           cudaStream_t stream, const float* x, float* out,
-                          const int* table, const SweepGeom& g,
-                          const SweepTaps& taps) {
+                          const int* table, float* stash,
+                          const StreamGeom& g, const SweepTaps& taps) {
     cudaError_t err = cudaFuncSetAttribute(
-        pencil_sweep_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pencil_sweep_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) {
         cudaGetLastError();
         return err;
     }
-    pencil_sweep_kernel<NT><<<grid, threads, smem_bytes, stream>>>(
-        x, out, table, g, taps);
+    pencil_sweep_kernel<L><<<blocks, threads, smem_bytes, stream>>>(
+        x, out, table, stash, g, taps);
     return cudaGetLastError();
 }
 
+// Launch arguments: output brick rows [K0, K1) in chunks of KCH, PJ
+// pencils per block, TI lanes, level-0 margin H, piece PW (4 or 1 floats),
+// D planes ahead; edge_lo / edge_hi: the first / last chunk reaches below
+// / above the table, and each block keeps stash_lo / stash_hi floats of
+// `stash` for it (batch x pencil groups x i tiles blocks' worth); bit f of
+// skew (1 <= f < F): levels f and f+1 skewed by a plane.  smem_bytes must
+// hold the block's layout (stream_smem_bytes), and a chunk's planes stay
+// below BT_PLANE_SPAN; the taps' offsets pick the body (a compiled tap
+// layout they equal, else the generic one).
 extern "C" int bt_pencil_sweep(const void* x, void* out, const void* table,
-                               int GK, int GJ, int BK, int BJ, int BI,
-                               int K0, int K1, int J0, int J1, int F,
+                               void* stash, int GK, int GJ, int BK, int BJ,
+                               int BI, int K0, int K1, int J0, int J1, int F,
                                int klo, int khi, int jlo, int jhi,
-                               int ilo, int ihi, int TI,
-                               int batch, int stride, int ntaps,
+                               int ilo, int ihi, int batch, int stride,
+                               int KCH, int PJ, int TI, int H, int PW, int D,
+                               int edge_lo, int edge_hi, int stash_lo,
+                               int stash_hi, int skew, int ntaps,
                                const int* tap_offsets,
                                const float* tap_coeffs, int smem_bytes,
                                int threads, void* stream) {
-    if (ntaps < 1 || ntaps > BT_MAX_TAPS || F < 1 || TI < 1 || BI % TI
-        || batch < 1 || batch * (K1 - K0) > 65535)
+    const int nrows = K1 - K0, npen = J1 - J0;
+    if (ntaps < 1 || ntaps > BT_MAX_TAPS || F < 1 || batch < 1
+        || npen < 1 || nrows < 1 || KCH < 1 || PJ < 1 || TI < 1 || BI % TI
+        || (PW != 1 && PW != 4) || BI % PW || TI % PW || H % PW
+        || H < F * (ilo > ihi ? ilo : ihi)
+        || (D != 1 && D != 2) || stash_lo < 0 || stash_hi < 0
+        || F > 30 || (skew & ~((1 << F) - 2))
+        || ((stash_lo || stash_hi) && stash == nullptr)
+        || ((edge_lo || edge_hi) && F > 1 && GK < 2)
+        || threads < 32 || threads > BT_STREAM_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
-    SweepGeom g = {GK, GJ, BK, BJ, BI, K0, J0, K1 - K0, (long long)stride,
-                   F, klo, khi, jlo, jhi, ilo, ihi, TI};
+    const int nchunk = (nrows + KCH - 1) / KCH;
+    const int njg = (npen + PJ - 1) / PJ, nit = BI / TI;
+    StreamGeom g = {GK, GJ, BK, BJ, BI, K0, K1, KCH, nchunk, J0, J1,
+                    PJ, njg, TI, nit, H, PW, D, F, klo, khi, jlo, jhi,
+                    ilo, ihi, (long long)stride, edge_lo, edge_hi, stash_lo,
+                    stash_hi, skew};
+    const long long blocks = (long long)batch * nchunk * njg * nit;
+    // a chunk's planes, counted from its first brick row, stay below
+    // BT_PLANE_SPAN (stream_block's division-free ring slots and rows)
+    const long long span = (long long)(KCH + 2) * BK
+                           + (long long)F * (klo + khi + 1);
+    if (blocks > 0x7fffffffLL || stream_smem_bytes(g) > smem_bytes
+        || span >= BT_PLANE_SPAN)
+        return (int)cudaErrorInvalidValue;
     const SweepTaps taps = sweep_taps(ntaps, tap_offsets, tap_coeffs);
-    dim3 grid(BI / TI, J1 - J0, batch * (K1 - K0));
     cudaStream_t st = (cudaStream_t)stream;
     const float* xf = (const float*)x;
     const int* tb = (const int*)table;
-    if (ntaps == 7)
-        return (int)launch<7>(grid, threads, smem_bytes, st, xf,
-                              (float*)out, tb, g, taps);
-    return (int)launch<0>(grid, threads, smem_bytes, st, xf, (float*)out,
-                          tb, g, taps);
+    float* sf = (float*)stash;
+    if (layout_matches<LayoutStar7>(taps))
+        return (int)launch<LayoutStar7>((int)blocks, threads, smem_bytes, st,
+                                        xf, (float*)out, tb, sf, g, taps);
+    if (layout_matches<LayoutCube125>(taps))
+        return (int)launch<LayoutCube125>((int)blocks, threads, smem_bytes,
+                                          st, xf, (float*)out, tb, sf, g,
+                                          taps);
+    return (int)launch<LayoutRuntime>((int)blocks, threads, smem_bytes, st,
+                                      xf, (float*)out, tb, sf, g, taps);
 }

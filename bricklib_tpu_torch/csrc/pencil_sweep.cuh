@@ -1,7 +1,11 @@
-// The per-block body of the fused pencil sweep, shared by kernel K1
-// (pencil_sweep.cu) and kernel K11 (fused_exchange.cu), so that K11's
-// arithmetic is K1's by construction: K11's result must equal a PUT
-// exchange followed by K1 bit for bit.
+// The per-brick-row block body of the fused pencil sweep: kernel K11's
+// (fused_exchange.cu), and K1's first design.  K1 (pencil_sweep.cu) now
+// streams chunks of brick rows through each block instead
+// (pencil_stream.cuh), with the same arithmetic per output: the chain acc =
+// 0; acc += c[t] * x[t] in tap order.  So K11's result still equals a PUT
+// exchange followed by K1 bit for bit.  This header also holds the pieces
+// both bodies use (SweepTaps, sweep_taps, floor_div, clamp_int).  Moving
+// K11 onto the streaming body is later work.
 //
 // One block owns one output brick row `kout` of subdomain `sub`, one output
 // pencil `jout` and TI lanes of i from `i0`.  It loads the level-0 tile (the

@@ -8,10 +8,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 2. builds the port's CUDA kernels from ``bricklib_tpu_torch/csrc`` with
    nvcc, one process per source;
 3. holds each kernel against its plain PyTorch version on the card:
-   K1 (fused pencil sweep) at 32^3 and 512^3 in six configurations (the
-   weak step's three s7pt forms; on the periodic table s7pt fuse=4 and
-   mpi125pt fuse=1 and fuse=2) and batched over the 16 subdomains of the
-   strong stack, K4 (fused 4-D
+   K1 (fused pencil sweep, k-streaming blocks) at 32^3 and 512^3 in six
+   configurations (the weak step's three s7pt forms; on the periodic table
+   s7pt fuse=4 and mpi125pt fuse=1 and fuse=2), batched over the 16
+   subdomains of the strong stack, and where its launch differs most from
+   a per-row sweep (both k edges of a non-periodic table at fuse 1 to 4,
+   mpi125pt ghost-inclusive at fuse 1 and 2, s27pt through the generic
+   body, two brick rows, bricks 96 deep, a batch of 16), K4 (fused 4-D
    sweep) at a tiny and the full 4-D shape in four configurations, K6
    (2-D whole-row sweep) at the full 16384^2 storage (9-point box at
    fuse=1 and fuse=4, the wave system) and on a tiny radius-2 stencil
@@ -70,7 +73,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    padding on the dense 512^3 domain; K7: one valid ``F.conv3d`` on the
    padded slab; K2, K5, K9, K10: indexed assignments of the same rows;
    K11 has none, and the composition it replaces is timed beside it; K12
-   has none, PyTorch having no 5-D convolution).
+   has none, PyTorch having no 5-D convolution); K1 also at bench.py's k7
+   form (s7pt fuse=1 on the periodic table), and K2 against the indexed
+   assignments in alternating pairs (median and spread of each).
 
 Any failure exits non-zero.  Without a CUDA card, or outside a checkout of
 the repository, it exits non-zero and prints no result.  The line before
@@ -128,6 +133,8 @@ DIMS5, BD5 = (8, 8, 64, 64, 512), (2, 2, 8, 8, 512)
 DIMS5_2IN, BD5_2IN = (4, 4, 16, 16, 256), (2, 2, 8, 8, 256)
 DIMS6, BD6 = (4, 4, 4, 8, 8, 128), (2, 2, 2, 4, 4, 128)
 K12_TIMED = 20
+# K2 against one indexed assignment per stage: alternating pairs
+K2_PAIRS = 12
 # the torch oracle (backend "jnp", whole-brick ghosts): the weak step at
 # bench.py's 512^3 with bricks (8, 8, 128), the same at 256^3 per rank on
 # mesh (2, 2, 1) with --overlap, the weak CLI's defaults with
@@ -448,6 +455,65 @@ def phase_kernels_strong(err: dict) -> None:
     if torch.equal(a, flat):
         fail("the strong exchange moved nothing")
     err["K5"] = 0.0
+
+
+def phase_kernels_stream(err: dict) -> None:
+    """K1's k-streaming launch where it differs most from the per-row body:
+    both k edges of a non-periodic table (the clamp's source planes
+    stashed, the low ones by a pre-roll) at F = 1 to 4, mpi125pt (the
+    cube's compiled tap layout) at F = 1 and 2, s27pt (the generic body:
+    no compiled layout), a k extent of two brick rows, bricks 96 deep in
+    k, and a batch of 16 subdomains."""
+    from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep
+    from bricklib_tpu_torch.comm import (BrickDecomp, StrongDecomp,
+                                         skinlist_by_name)
+    from bricklib_tpu_torch.core import random_storage
+    from bricklib_tpu_torch.stencils import bench_params
+
+    dec = BrickDecomp(dims=(128, 96, 128), ghost_depth=(4, 4, 0),
+                      bdims=(4, 4, 128)).initialize(
+        skinlist_by_name("good", 3))
+    GK, GJ = dec.grid.shape[:2]
+    x = random_storage(dec, seed=25, device="cuda")
+    cases = [(f"edges k(0, {GK}) s7pt fuse={f}", "s7pt", dec.grid,
+              (0, GK), f) for f in (1, 2, 3, 4)]
+    cases += [(f"mpi125pt ghost-inclusive fuse={f}", "mpi125pt", dec.grid,
+               (0, GK), f) for f in (1, 2)]
+    cases += [("k(3, 5) s7pt fuse=4, two brick rows", "s7pt",
+               dec.grid, (3, 5), 4),
+              ("s27pt ghost-inclusive fuse=2, generic body", "s27pt",
+               dec.grid, (0, GK), 2)]
+    for name, stencil, grid, kr, fuse in cases:
+        fn = pencil_sweep(stencil, grid, dec.bdims, dec.nbricks,
+                          bench_params(), k_range=kr, j_range=(0, GJ),
+                          fuse=fuse)
+        sp = fn.plan.stream()
+        check_sweep(f"{name} (chunk {sp.kch}, {sp.pj} pencils, tile "
+                    f"{sp.ti}, k edges {sp.edge_lo, sp.edge_hi})", fn, x, err,
+                    "K1")
+    del x
+    tall = BrickDecomp(dims=(288, 32, 128), ghost_depth=(96, 4, 0),
+                       bdims=(96, 4, 128)).initialize(
+        skinlist_by_name("good", 3))
+    GK, GJ = tall.grid.shape[:2]
+    check_sweep("bricks 96 deep, k(0, 5) s7pt fuse=3",
+                pencil_sweep("s7pt", tall.grid, tall.bdims, tall.nbricks,
+                             bench_params(), k_range=(0, GK),
+                             j_range=(0, GJ), fuse=3),
+                random_storage(tall, seed=27, device="cuda"), err, "K1")
+    plan = StrongDecomp(dom=(256, 256, 128), sdom=(64, 64, 128),
+                        mesh_shape=(1, 1, 1), bdims=(8, 8, 128),
+                        ghost_depth=(8, 8, 0)).initialize(
+        skinlist_by_name("good", 3))
+    kg = plan.sdec.periodic_grid((2,))
+    nb, nsub = plan.sdec.nbricks, plan.nsub_local
+    flat = rand_cuda((nsub * nb,) + tuple(plan.bdims), 26)
+    check_sweep(f"batched x{nsub} fuse=4 ghost-inclusive (64, 64, 128)",
+                pencil_sweep("s7pt", kg, plan.bdims, nsub * nb,
+                             bench_params(), k_range=(0, kg.shape[0]),
+                             j_range=(0, kg.shape[1]), batch=nsub,
+                             batch_stride=nb, fuse=4), flat, err, "K1")
+    del flat
 
 
 def mesh_exchanges(devices_weak, devices_strong):
@@ -1398,7 +1464,9 @@ def phase_times(card: str) -> dict:
     """Per kernel: its ms beside its plain version's, its bound and, where
     one PyTorch call computes the same function, that call's ms; at the
     paths' shapes: K1 and K2 summed over the launches of one 512^3 step
-    (two sweeps, two exchange stages), K3 per whole-storage copy."""
+    (two sweeps, two exchange stages; K2 in alternating pairs with the
+    indexed assignments), K1 at fuse=1 on the periodic table apart, K3 per
+    whole-storage copy."""
     import torch
 
     from bricklib_tpu_torch.bench.roofline import (copy_storage,
@@ -1409,11 +1477,12 @@ def phase_times(card: str) -> dict:
 
     dec = decomposition(N_BIG)
     x = random_storage(dec, seed=9, device="cuda")
-    weak = time_sweeps(card, "K1", [
-        (name, make_sweep(dec, grid, kr, jr, fuse))
-        for name, grid, kr, jr, fuse in sweep_cases(dec)[1:]], x)
+    k7, *weak_cases = [(name, make_sweep(dec, grid, kr, jr, fuse))
+                       for name, grid, kr, jr, fuse in sweep_cases(dec)]
+    weak = time_sweeps(card, "K1", weak_cases, x)
     print_times(card, "K1", "weak 512^3 step, both sweeps", weak)
-    out = {}
+    # bench.py's k7 leg: one fuse=1 sweep on the periodic table
+    out = {"K1 f1": time_sweeps(card, "K1", [k7], x)}
     ex = shift_exchange(dec, (1, 1, 1), (2,))
     ex(x)
     brick = x[0].numel() * x.element_size()
@@ -1430,8 +1499,8 @@ def phase_times(card: str) -> dict:
             x[d] = x[s]
 
     moved = sum(d1 - d0 for ivs in ex.stages for d0, d1, _, _ in ivs)
-    out["K2"] = row(cuda_ms(lambda: ex(x), 50), cuda_ms(plain_ex, 50),
-                    2 * moved * brick, 0, cuda_ms(lib_ex, 50))
+    k2, lib2 = k2_pairs(card, lambda: ex(x), lib_ex)
+    out["K2"] = row(k2, cuda_ms(plain_ex, 50), 2 * moved * brick, 0, lib2)
     y = torch.empty_like(x)
     out["K3"] = row(cuda_ms(lambda: copy_storage(x), 50),
                     cuda_ms(lambda: copy_storage_plain(x), 50),
@@ -1449,6 +1518,29 @@ def phase_times(card: str) -> dict:
     out.update(phase_times_mesh(card))
     out.update(phase_times_nd(card))
     return out
+
+
+def k2_pairs(card: str, kernel, library, pairs: int = K2_PAIRS):
+    """K2 (``kernel``: one exchange) and one indexed assignment per stage
+    (``library``) in ``pairs`` alternating pairs (kernel first in even
+    pairs, library first in odd ones), 50 calls each; prints the median
+    and spread (max - min) of each; returns the two medians."""
+    import statistics
+
+    ts = {"K2": [], "library": []}
+    for p in range(pairs):
+        order = ("K2", "library") if p % 2 == 0 else ("library", "K2")
+        for who in order:
+            ts[who].append(cuda_ms(kernel if who == "K2" else library, 50))
+    med = {k: statistics.median(v) for k, v in ts.items()}
+    spread = {k: max(v) - min(v) for k, v in ts.items()}
+    print(f"[5 K2 pairs] {card}: {pairs} alternating pairs, K2 median "
+          f"{med['K2']:.4f} ms (spread {spread['K2']:.4f}), one indexed "
+          f"assignment per stage median {med['library']:.4f} ms (spread "
+          f"{spread['library']:.4f}); K2 "
+          f"{'slower' if med['K2'] > med['library'] else 'faster'} by "
+          f"{abs(med['K2'] - med['library']):.4f} ms")
+    return med["K2"], med["library"]
 
 
 def interval_rows(ivs, k: int):
@@ -2181,6 +2273,7 @@ def main() -> None:
     err = phase_kernels()
     phase_kernels_4d(err)
     phase_kernels_strong(err)
+    phase_kernels_stream(err)
     phase_kernels_mesh(err)
     phase_kernels_fused(err)
     phase_kernels_2d(err)

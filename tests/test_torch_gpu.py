@@ -32,7 +32,8 @@ from bricklib_tpu_torch.codegen.dense_kernel import (dense_stencil,
 from bricklib_tpu_torch.codegen.mxu_kernel import (pencil_sweep_mxu,
                                                    pencil_sweep_mxu_kernel,
                                                    pencil_sweep_mxu_plain)
-from bricklib_tpu_torch.codegen.pencil_kernel import (pencil_sweep,
+from bricklib_tpu_torch.codegen.pencil_kernel import (_launch_stream,
+                                                      pencil_sweep,
                                                       pencil_sweep_kernel,
                                                       pencil_sweep_plain)
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
@@ -467,10 +468,11 @@ def test_strong_mesh_step_on_card_validates(cuda, exchange):
     assert len(rank_views(step.mesh, state)) == 2
 
 
-def _fused_case(devices, rings=1, ti_narrow=False):
+def _fused_case(devices, rings=1, ti_narrow=False, name=None):
     """A small (2, 2, 1) mesh for K11: (fused fn, PUT exchange, K1 sweep
     over each card's ranks, random state).  ``ti_narrow``: bricks 256
-    wide, two i tiles of 128, and the 13-point star (taps not unrolled)."""
+    wide, two i tiles of 128, and the 13-point star (taps not unrolled);
+    ``name``: another stencil."""
     bd = (4, 4, 256) if ti_narrow else (4, 4, 32)
     gz = (4 * rings, 4 * rings, 0)
     dec = BrickDecomp(dims=(24, 16, bd[2]), ghost_depth=gz,
@@ -478,7 +480,7 @@ def _fused_case(devices, rings=1, ti_narrow=False):
     mesh = make_domain_mesh((2, 2, 1), devices=devices)
     plan = put_plan(dec, (2, 2, 1), (2,))
     grid = dec.periodic_grid((2,))
-    name = "mpi13pt" if ti_narrow else "s7pt"
+    name = name or ("mpi13pt" if ti_narrow else "s7pt")
     fn = pencil_sweep_fusedx(name, grid, bd, dec.nbricks, plan, (2, 2, 1),
                              bench_params(), mesh=mesh)
     (kr, jr) = fn.plan.ranges
@@ -525,6 +527,15 @@ def _check_fused(fn, put, sweeps, state, dec):
                          ids=["rings1", "rings2", "narrow-i-tile"])
 def test_fused_exchange_kernel_matches_put_and_k1(cuda, rings, ti_narrow):
     _check_fused(*_fused_case([cuda] * 4, rings, ti_narrow))
+
+
+@pytest.mark.parametrize("name", ["mpi125pt", "s27pt"])
+def test_fused_exchange_kernel_matches_put_and_k1_other_stencils(cuda,
+                                                                 name):
+    """K11 against the PUT exchange + K1, bit for bit, on the 125-point
+    cube (K1's compiled layout: loads shared between taps and rows) and
+    the 27-point box (K1's generic body)."""
+    _check_fused(*_fused_case([cuda] * 4, name=name))
 
 
 def test_fused_exchange_kernel_across_two_cards(cuda):
@@ -607,3 +618,142 @@ def test_oracle_paths_on_card_match_cpu(cuda):
                      stencil="s7pt", st_iter=2, backend="jnp",
                      validate=True, iters=1, device=cuda)
     assert res["calls"]["step"] > 0
+
+
+def _k1_check(cuda, fn, x, sp=None):
+    """K1 (``sp``: a launch other than the planner's) against its plain
+    version on the bricks it writes, at abs-or-rel 1e-5."""
+    before = pencil_sweep_kernel.launches
+    table = torch.from_numpy(fn.plan.table).to(cuda)
+    got = fn(x) if sp is None else _launch_stream(x, table, fn.plan, sp)
+    assert pencil_sweep_kernel.launches == before + 1
+    want = pencil_sweep_plain(x, table, fn.plan)
+    torch.cuda.synchronize()
+    w = fn.plan.written_bricks()
+    assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 3, 4])
+@pytest.mark.parametrize("edges", ["low", "high", "both"])
+def test_stream_sweep_kernel_at_table_edges(cuda, fuse, edges):
+    """K1 on a non-periodic table with k ranges that start at 0 and end at
+    GK (the chunks there keep the clamp's source planes in a stash), at F
+    1 to 4."""
+    dec = BrickDecomp(dims=(32, 24, 32), ghost_depth=(4, 4, 0),
+                      bdims=(4, 4, 32)).initialize(skinlist_by_name("good", 3))
+    GK, GJ = dec.grid.shape[:2]
+    kr = {"low": (0, GK - 1), "high": (1, GK), "both": (0, GK)}[edges]
+    fn = pencil_sweep("s7pt", dec.grid, dec.bdims, dec.nbricks,
+                      bench_params(), k_range=kr, j_range=(0, GJ),
+                      fuse=fuse)
+    sp = fn.plan.stream()
+    assert sp.edge_lo == (kr[0] == 0) and sp.edge_hi == (kr[1] == GK)
+    _k1_check(cuda, fn, random_storage(dec, seed=21, device=cuda))
+
+
+@pytest.mark.parametrize("fuse", [1, 2])
+def test_stream_sweep_kernel_radius_2(cuda, fuse):
+    """K1 on mpi125pt (the 125 taps unrolled) at F 1 and 2, ghost-inclusive
+    on a non-periodic table and owned-only on the periodic one."""
+    dec = BrickDecomp(dims=(24, 24, 64), ghost_depth=(4, 4, 0),
+                      bdims=(4, 4, 64)).initialize(skinlist_by_name("good", 3))
+    GK, GJ = dec.grid.shape[:2]
+    x = random_storage(dec, seed=22, device=cuda)
+    for grid, kr, jr in ((dec.grid, (0, GK), (0, GJ)),
+                         (dec.periodic_grid((0, 1, 2)), (1, GK - 1),
+                          (1, GJ - 1))):
+        _k1_check(cuda, pencil_sweep("mpi125pt", grid, dec.bdims,
+                                     dec.nbricks, bench_params(),
+                                     k_range=kr, j_range=jr, fuse=fuse), x)
+
+
+def test_stream_sweep_kernel_short_and_ragged_footprints(cuda):
+    """K1 with a k extent shorter than one chunk, and with chunks, pencil
+    groups and an i tile that do not divide the ranges, at F = 2; the
+    launch's shared memory and stash are counted from its footprint,
+    skewed level boundaries included."""
+    import dataclasses
+
+    dec = BrickDecomp(dims=(40, 28, 64), ghost_depth=(4, 4, 0),
+                      bdims=(4, 4, 64)).initialize(skinlist_by_name("good", 3))
+    GK, GJ = dec.grid.shape[:2]
+    x = random_storage(dec, seed=23, device=cuda)
+    for kr, kch, pj, ti in (((2, 4), 8, 2, 64), ((0, GK), 3, 3, 16),
+                            ((1, GK - 1), 4, 5, 32)):
+        fn = pencil_sweep("mpi13pt", dec.grid, dec.bdims, dec.nbricks,
+                          bench_params(), k_range=kr, j_range=(0, GJ),
+                          fuse=2)
+        for skew in (0, 2):
+            _k1_check(cuda, fn, x, dataclasses.replace(
+                fn.plan.stream(), kch=kch, pj=pj, ti=ti, d=2, skew=skew))
+        _k1_check(cuda, fn, x)
+
+
+@pytest.mark.parametrize("fuse", [1, 2])
+def test_stream_sweep_kernel_on_the_box(cuda, fuse):
+    """K1's generic body (the 27-point box: no compiled layout) at both
+    table edges, F 1 and 2."""
+    dec = BrickDecomp(dims=(24, 24, 64), ghost_depth=(4, 4, 0),
+                      bdims=(4, 4, 64)).initialize(skinlist_by_name("good", 3))
+    GK, GJ = dec.grid.shape[:2]
+    fn = pencil_sweep("s27pt", dec.grid, dec.bdims, dec.nbricks,
+                      bench_params(), k_range=(0, GK), j_range=(0, GJ),
+                      fuse=fuse)
+    _k1_check(cuda, fn, random_storage(dec, seed=27, device=cuda))
+
+
+def test_stream_sweep_kernel_tall_bricks(cuda):
+    """K1 with bricks 96 deep in k (more than 64, not a power of two) at
+    both table edges, F = 3: ring slots and brick rows from float
+    reciprocals, exact for any divisor below 2^20 planes."""
+    dec = BrickDecomp(dims=(288, 16, 32), ghost_depth=(96, 4, 0),
+                      bdims=(96, 4, 32)).initialize(
+        skinlist_by_name("good", 3))
+    GK, GJ = dec.grid.shape[:2]
+    fn = pencil_sweep("s7pt", dec.grid, dec.bdims, dec.nbricks,
+                      bench_params(), k_range=(0, GK), j_range=(0, GJ),
+                      fuse=3)
+    _k1_check(cuda, fn, random_storage(dec, seed=28, device=cuda))
+
+
+def test_stream_sweep_kernel_refuses_too_little_shared_memory(cuda,
+                                                               monkeypatch):
+    """The C entry point refuses a launch whose shared memory is smaller
+    than its block's layout."""
+    import dataclasses
+
+    from bricklib_tpu_torch.codegen import pencil_kernel
+
+    dec = BrickDecomp(dims=(16, 16, 32), ghost_depth=(4, 4, 0),
+                      bdims=(4, 4, 32)).initialize(skinlist_by_name("good", 3))
+    fn = pencil_sweep("s7pt", dec.periodic_grid((0, 1, 2)), dec.bdims,
+                      dec.nbricks, bench_params(), fuse=2)
+    x = random_storage(dec, seed=29, device=cuda)
+    table = torch.from_numpy(fn.plan.table).to(cuda)
+    sp = fn.plan.stream()
+    short = dataclasses.replace(sp, smem_bytes=sp.smem_bytes - 8)
+    monkeypatch.setattr(pencil_kernel.SweepPlan, "stream",
+                        lambda self: short)
+    with pytest.raises(RuntimeError, match="pencil_sweep"):
+        pencil_sweep_kernel(x, table, fn.plan)
+    monkeypatch.undo()
+    _k1_check(cuda, fn, x)
+
+
+@pytest.mark.parametrize("skip", [0, 1])
+def test_stream_sweep_kernel_batch_16(cuda, skip):
+    """Batched K1 over a stack of 16 subdomains at F = 4."""
+    plan = StrongDecomp(dom=(64, 64, 32), sdom=(16, 16, 32),
+                        mesh_shape=(1, 1, 1), bdims=(4, 4, 32),
+                        ghost_depth=(4, 4, 0)).initialize(
+        skinlist_by_name("good", 3))
+    kg = plan.sdec.periodic_grid((2,))
+    nb, nsub = plan.sdec.nbricks, plan.nsub_local
+    assert nsub == 16
+    GK, GJ = kg.shape[:2]
+    x = torch.from_numpy(random_array((nsub * nb,) + plan.bdims, np.float32,
+                                      24)).to(cuda)
+    _k1_check(cuda, pencil_sweep(
+        "s7pt", kg, plan.bdims, nsub * nb, bench_params(),
+        k_range=(skip, GK - skip), j_range=(skip, GJ - skip), batch=nsub,
+        batch_stride=nb, fuse=4), x)
