@@ -56,7 +56,7 @@ from .codegen.fused_exchange import pencil_sweep_fusedx
 from .codegen.mxu_kernel import pencil_sweep_mxu
 from .codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
 from .codegen.pencil_kernel_2d import pencil_sweep_2d
-from .codegen.pencil_kernel_4d import pencil_sweep_4d, tile_4d
+from .codegen.pencil_kernel_4d import pencil_sweep_4d, stream_plan_4d
 from .comm import BrickDecomp, skinlist_by_name
 from .comm.exchange import on_card, put_plan, shift_exchange
 from .comm.mesh import Mesh, make_domain_mesh, rank_views, to_state
@@ -371,12 +371,9 @@ class Problem:
                                else "K4 pencil_sweep_4d"),
                     "taps": (None if plan.taps is None
                              else [len(plan.taps.coeffs)])}
-            if plan.taps is not None and nd == 3:
-                sp = plan.stream()
+            if plan.taps is not None:
+                sp = plan.stream() if nd == 3 else stream_plan_4d(plan)
                 info["tile_i"], info["smem_bytes"] = sp.ti, sp.smem_bytes
-            elif plan.taps is not None:
-                (info["tile_w"], info["tile_i"],
-                 info["smem_bytes"]) = tile_4d(plan)
         self.fuse = fuse
         self._make_mesh(device, devices, flat=fused_x)
         exchange_fn = fusedx = None

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 from pathlib import Path
 
@@ -103,16 +104,17 @@ int main(int argc, char** argv) {
 """
 
 
-def variants() -> dict:
-    """The four forms of the body, each as the header's text."""
-    base = (CSRC / "pencil_stream.cuh").read_text()
-    for h in ("pencil_sweep.cuh", "tap_layouts.cuh"):
-        base = base.replace(f'#include "{h}"', f'#include "{CSRC / h}"')
+def variants(header: str = "pencil_stream.cuh") -> dict:
+    """The four forms of a stream body (``header``: K1's, or K4's
+    ``pencil_stream_4d.cuh``), each as the header's text."""
+    base = re.sub(r'#include "(\w+\.cuh)"',
+                  lambda m: f'#include "{CSRC / m.group(1)}"',
+                  (CSRC / header).read_text())
     issue = "    auto issue = [&](int q, int qb) {"
     barrier = "                if (!((skw >> f) & 1)) __syncthreads();"
     for anchor in (issue, barrier):
         if anchor not in base:
-            raise RuntimeError(f"pencil_stream.cuh changed: no {anchor!r}")
+            raise RuntimeError(f"{header} changed: no {anchor!r}")
     no_loads = issue + "\n        if (true) { bt_cp_commit(); return; }"
     return {"full": base,
             "no-loads": base.replace(issue, no_loads),
@@ -120,12 +122,49 @@ def variants() -> dict:
             "neither": base.replace(issue, no_loads).replace(barrier, "")}
 
 
+def probe(kernel: str, harness: str, header: str, args: list,
+          out: Path, reps: int, edit=None) -> dict:
+    """Build ``harness`` around each form of ``header``'s body (its text
+    passed through ``edit`` where given), one nvcc each, all started
+    together, into ``out``; run each form ``reps`` times with ``args``
+    (and the ``full`` form without its tap layout, as ``generic``); ms
+    per launch of each run."""
+    from bricklib_tpu_torch import _build
+
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "harness.cu").write_text(harness)
+    nvcc = _build.nvcc_path()
+    procs = {}
+    for name, text in variants(header).items():
+        d = out / name
+        d.mkdir(exist_ok=True)
+        (d / "body.cuh").write_text(edit(text) if edit else text)
+        procs[name] = subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", f"-I{d}", "-o", str(d / "probe"), str(out / "harness.cu")],
+            stderr=subprocess.PIPE, text=True)
+    for name, p in procs.items():
+        if p.wait() != 0:
+            raise RuntimeError(f"nvcc {name}: {p.stderr.read()}")
+    ms = {}
+    forms = [(name, name, "0") for name in procs] + [("generic", "full", "1")]
+    for _ in range(reps):
+        for name, prog, generic in forms:
+            res = subprocess.run([str(out / prog / "probe"), *args, generic],
+                                 capture_output=True, text=True, timeout=300,
+                                 check=True).stdout.split()
+            if res[1:] != ["no", "error"]:
+                raise RuntimeError(f"{name}: {' '.join(res)}")
+            ms.setdefault(name, []).append(float(res[0]))
+            print(f"[{kernel} probe {name}] {res[0]} ms", flush=True)
+    return ms
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fuse", type=int, default=4)
     ap.add_argument("--reps", type=int, default=2)
     a = ap.parse_args()
-    from bricklib_tpu_torch import _build
     from bricklib_tpu_torch.bench.k1_regimes import card
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep
     from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
@@ -139,35 +178,12 @@ def main() -> None:
     sp = fn.plan.stream()
     args = [str(v) for v in (a.fuse, sp.kch, sp.pj, sp.ti, sp.d,
                              sp.smem_bytes, sp.skew, sp.h)]
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "harness.cu").write_text(HARNESS)
-    nvcc = _build.nvcc_path()
-    procs = {}
-    for name, text in variants().items():
-        d = OUT / name
-        d.mkdir(exist_ok=True)
-        (d / "body.cuh").write_text(text)
-        procs[name] = subprocess.Popen(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", f"-I{d}", "-o", str(d / "probe"), str(OUT / "harness.cu")],
-            stderr=subprocess.PIPE, text=True)
-    for name, p in procs.items():
-        if p.wait() != 0:
-            raise RuntimeError(f"nvcc {name}: {p.stderr.read()}")
     res = {"card": card(), "fuse": a.fuse,
            "footprint": {"kch": sp.kch, "pj": sp.pj, "ti": sp.ti, "d": sp.d,
-                         "skew": sp.skew}, "ms": {}}
+                         "skew": sp.skew}}
     print(res["card"])
-    forms = [(name, name, "0") for name in procs] + [("generic", "full", "1")]
-    for _ in range(a.reps):
-        for name, prog, generic in forms:
-            out = subprocess.run([str(OUT / prog / "probe"), *args, generic],
-                                 capture_output=True, text=True, timeout=300,
-                                 check=True).stdout.split()
-            if out[1:] != ["no", "error"]:
-                raise RuntimeError(f"{name}: {' '.join(out)}")
-            res["ms"].setdefault(name, []).append(float(out[0]))
-            print(f"[k1 probe fuse={a.fuse} {name}] {out[0]} ms", flush=True)
+    res["ms"] = probe(f"k1 fuse={a.fuse}", HARNESS, "pencil_stream.cuh",
+                      args, OUT, a.reps)
     print(json.dumps(res))
 
 

@@ -162,15 +162,56 @@ def footprints(iters: int) -> dict:
     return out
 
 
-def run_tree(tree: Path, iters: int) -> dict:
+def run_tree(tree: Path, iters: int, script: str = __file__) -> dict:
+    """``script --worker`` in one process importing ``tree``'s package;
+    the JSON object its last line prints."""
     env = dict(os.environ, PYTHONPATH=str(tree))
     proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--worker",
+        [sys.executable, str(Path(script).resolve()), "--worker",
          "--iters", str(iters)], cwd=tree, env=env, capture_output=True,
         text=True, timeout=1800)
     if proc.returncode != 0:
         raise RuntimeError(f"worker in {tree} failed:\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def alternate(parent: Path, pairs: int, iters: int, kernel: str,
+              script: str = __file__) -> dict:
+    """``script``'s worker in this tree and in ``parent``, alternating
+    ``parent, change, change, parent`` ``pairs`` times; per entry of the
+    workers' results, each tree's median, spread (max - min) and runs, and
+    for an entry that is not a number (a digest of an output) whether
+    every run of both trees gave the same one."""
+    runs = {"parent": [], "change": []}
+    for _ in range(pairs):
+        for who in ("parent", "change", "change", "parent"):
+            t = run_tree(parent.resolve() if who == "parent" else ROOT,
+                         iters, script)
+            runs[who].append(t)
+            print(f"[{who}] " + ", ".join(
+                f"{k} {v:.3f}" for k, v in t.items()
+                if isinstance(v, float)), flush=True)
+    out = {}
+    for name, v0 in runs["change"][0].items():
+        if not isinstance(v0, float):
+            same = len({t[name] for ts in runs.values() for t in ts}) == 1
+            out[name] = {"same": same}
+            print(f"[{kernel} {name}] {'equal' if same else 'DIFFERENT'} "
+                  "in every run of both trees", flush=True)
+            continue
+        row = {}
+        for who, ts in runs.items():
+            v = [t[name] for t in ts]
+            row[who] = {"median": statistics.median(v),
+                        "spread": max(v) - min(v), "runs": v}
+        out[name] = row
+        print(f"[{kernel} {name}] parent {row['parent']['median']:.3f} ms "
+              f"(spread {row['parent']['spread']:.3f}), change "
+              f"{row['change']['median']:.3f} ms (spread "
+              f"{row['change']['spread']:.3f}), ratio "
+              f"{row['change']['median'] / row['parent']['median']:.3f}",
+              flush=True)
+    return out
 
 
 def main() -> None:
@@ -191,29 +232,7 @@ def main() -> None:
     res = {"card": card()}
     print(res["card"], flush=True)
     if a.parent is not None:
-        runs = {"parent": [], "change": []}
-        for _ in range(a.pairs):
-            for who in ("parent", "change", "change", "parent"):
-                t = run_tree(a.parent.resolve() if who == "parent" else ROOT,
-                             a.iters)
-                runs[who].append(t)
-                print(f"[{who}] " + ", ".join(f"{k} {v:.3f}"
-                                             for k, v in t.items()),
-                      flush=True)
-        res["pairs"] = {}
-        for name in runs["change"][0]:
-            row = {}
-            for who, ts in runs.items():
-                v = [t[name] for t in ts]
-                row[who] = {"median": statistics.median(v),
-                            "spread": max(v) - min(v), "runs": v}
-            res["pairs"][name] = row
-            print(f"[K1 {name}] parent {row['parent']['median']:.3f} ms "
-                  f"(spread {row['parent']['spread']:.3f}), change "
-                  f"{row['change']['median']:.3f} ms (spread "
-                  f"{row['change']['spread']:.3f}), ratio "
-                  f"{row['change']['median'] / row['parent']['median']:.3f}",
-                  flush=True)
+        res["pairs"] = alternate(a.parent, a.pairs, a.iters, "K1")
     if a.footprints:
         res["footprints"] = footprints(a.iters)
     print(json.dumps(res))

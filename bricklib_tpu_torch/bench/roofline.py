@@ -6,15 +6,22 @@
   against (2 x itemsize bytes moved per element);
 - :func:`barrier` — ``torch.cuda.synchronize`` where there is a card;
 - :func:`chain` — a dependent chain ``out = fn(out)`` timed with CUDA
-  events after one warm-up call, over a tensor or a mesh state.
+  events after one warm-up call, over a tensor or a mesh state;
+- :func:`bound` and :func:`sweep_work` — the least time the card could
+  take for a kernel's work, and a sweep's bytes and operations.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
 from .timing import Clock, devices_of
+
+# one H100's published peaks (SXM, 700 W): device-memory bytes/s and f32
+# operations/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
 def copy_storage_plain(x: torch.Tensor) -> torch.Tensor:
@@ -82,3 +89,34 @@ def chain(fn, x, it: int):
     for _ in range(it):
         out = fn(out)
     return clock.seconds(t0, clock.mark()) / it, out
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` through device memory and do ``flops`` f32 operations."""
+    t_b, t_f = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def sweep_work(plan) -> tuple[int, int]:
+    """(bytes, f32 operations) one sweep (K1, K4 or K6) must move and do:
+    each brick it reads through the table (the output bricks and their
+    neighbours, whole) read once per input field, each brick it writes
+    written once per output, and a multiply and an add per folded tap,
+    output element and fused level."""
+    t = plan.table
+    if hasattr(plan, "y_range"):
+        ranges, nin, nout = (plan.y_range,), len(plan.fields), len(plan.taps)
+        ntaps, batch, stride = sum(len(x) for x in plan.taps), 1, 0
+    else:
+        ranges, nin, nout = plan.ranges, 1, 1
+        ntaps = len(plan.taps.coeffs)
+        batch, stride = plan.batch, plan.batch_stride
+    win = t[tuple(slice(max(a - 1, 0), min(b + 1, n))
+                  for (a, b), n in zip(ranges, t.shape))]
+    nread = len(np.unique(np.concatenate(
+        [win.ravel() + s * stride for s in range(batch)])))
+    nwritten = len(plan.written_bricks())
+    belems = int(np.prod(plan.bdims))
+    return (4 * belems * (nin * nread + nout * nwritten),
+            2 * ntaps * plan.fuse * nwritten * belems)

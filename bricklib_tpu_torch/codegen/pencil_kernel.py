@@ -75,22 +75,24 @@ PLANE_SPAN = 1 << 20
 STREAM_LAYOUTS = ("s7pt", "mpi125pt")
 
 
-@lru_cache(maxsize=1)
-def _layouts() -> tuple:
+@lru_cache(maxsize=None)
+def _layouts(names: tuple) -> tuple:
     from ..stencils import bench_params
 
     return tuple(params_from_reference(bench_params(), name).offsets.tolist()
-                 for name in STREAM_LAYOUTS)
+                 for name in names)
 
 
-def stream_loads(offsets) -> float:
-    """Shared-memory loads per output of one K1 level: under a compiled
-    tap layout, the distinct (dk, row, di) that :data:`STREAM_ROWS` rows
-    of a column read, per row; otherwise one per tap."""
-    offs = np.asarray(offsets).reshape(-1, 3).tolist()
-    if offs not in _layouts():
+def stream_loads(offsets, layouts: tuple = STREAM_LAYOUTS) -> float:
+    """Shared-memory loads per output of one level of a streaming sweep
+    (K1; K4 with its ``layouts``): under a compiled tap layout, the
+    distinct values that :data:`STREAM_ROWS` rows of a column read (the
+    rows run along the offsets' second axis: j in K1, k in K4), per row;
+    otherwise one per tap."""
+    offs = np.asarray(offsets).tolist()
+    if offs not in _layouts(tuple(layouts)):
         return float(len(offs))
-    vals = {(dk, dj + u, di) for dk, dj, di in offs
+    vals = {(o[0], o[1] + u, *o[2:]) for o in offs
             for u in range(STREAM_ROWS)}
     return len(vals) / STREAM_ROWS
 

@@ -22,6 +22,8 @@ reference checks them and change nothing.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -29,71 +31,254 @@ import torch
 
 from .. import _build
 from ..core import not_ported
-from .pencil_kernel import (FEATURES_ITEM, MAX_TILE_I, SweepPlan, _is_f32,
+from .pencil_kernel import (BLOCK_COST, FEATURES_ITEM, LOAD_COST,
+                            MAX_PENCILS, PLANE_SPAN, SM_COUNT, STEP_COST,
+                            STREAM_ROWS, STREAM_SMEM_BUDGET, STREAM_THREADS,
+                            SYNC_COST, SweepPlan, _is_f32, stream_loads,
                             sweep_fn)
 from .pencil_kernel import pencil_sweep_plain as pencil_sweep_4d_plain
 from .taps import as_ir, params_from_reference
 
-__all__ = ["K4_SMEM_BUDGET", "K4_THREADS", "pencil_sweep_4d",
-           "pencil_sweep_4d_kernel", "pencil_sweep_4d_plain", "tile_4d"]
+__all__ = ["K4_SMEM_BUDGET", "K4_THREADS", "Stream4Plan", "pencil_sweep_4d",
+           "pencil_sweep_4d_kernel", "pencil_sweep_4d_plain", "stream4_smem",
+           "stream_plan_4d"]
 
-# shared memory per block: 113 KiB lets two blocks share one SM
-K4_SMEM_BUDGET = 113 * 1024
-# threads per block: the level-0 loads wait on device memory, and 512
-# threads (two blocks, 32 warps per SM) hide more of that wait than 256
-# (17% faster at the 4-D step's shape) or 1024 (one block per SM)
-K4_THREADS = 512
-# the tiles K4 can address: float-reciprocal index math is exact below 2^20
-MAX_TILE_ELEMS = 1 << 20
-
-
-def _tile_cost(plan: SweepPlan, tw: int, ti: int) -> tuple[float, int, int]:
-    """(work per output element, shared-memory bytes, level-0 elements) of
-    a K4 block that owns ``tw`` w-slices and ``ti`` i-lanes of a brick."""
-    BW, BK, BJ, _BI = plan.bdims
-    F = plan.fuse
-    rw, rk, rj, ri = (l + h for l, h in zip(plan.lo, plan.hi))
-
-    def size(f):
-        d = F - f
-        return (tw + d * rw) * (BK + d * rk) * (BJ + d * rj) * (ti + d * ri)
-
-    rows0 = (tw + F * rw) * (BK + F * rk) * (BJ + F * rj)
-    n0, n1 = size(0), size(1) if F > 1 else 0
-    nbytes = 4 * ((n0 + n1 + 1) & ~1) + 8 * rows0
-    ntaps = len(plan.taps.coeffs)
-    work = n0 + ntaps * sum(size(f) for f in range(1, F + 1))
-    return work / (tw * BK * BJ * ti), nbytes, n0
+# K4's w-streaming blocks (csrc/pencil_stream_4d.cuh) on the H100: 512
+# threads, one block per SM (a thread may hold 128 registers), up to 227 KB
+# of shared memory a block
+K4_THREADS = STREAM_THREADS
+K4_SMEM_BUDGET = STREAM_SMEM_BUDGET
+# k brick rows per block the planner tries
+MAX_KROWS = 8
+# the tap layout K4 compiles in (csrc/tap_layouts.cuh, LayoutStar9)
+K4_LAYOUTS = ("mpi9pt",)
 
 
-def tile_4d(plan: SweepPlan) -> tuple[int, int, int]:
-    """(w slices per block, i lanes per block, shared-memory bytes) for
-    kernel K4: of the tiles whose level-0 and level-1 tiles and row
-    offsets fit :data:`K4_SMEM_BUDGET`, the one of least estimated work
-    per output element (level-0 loads plus tap reads over all levels).
-    Raises when none fits: K4 never falls back."""
-    BW, _BK, _BJ, BI = plan.bdims
+@dataclass(frozen=True)
+class Stream4Plan:
+    """K4's launch as :func:`stream_plan_4d` plans it.  The output w bricks
+    stream in chunks of ``wch``; a block takes ``pk`` k brick rows,
+    ``pj`` pencils and ``ti`` i lanes, level 0 loaded with an i margin of
+    ``h`` lanes per side in pieces of ``pw`` floats, ``d`` planes ahead.
+    Bit f of ``skew`` (1 <= f < F): levels f and f+1 are skewed by a
+    plane, with no barrier between them and a plane more in level f's
+    ring.  ``smem_bytes`` is the launch's dynamic shared memory."""
+
+    ranges: tuple
+    bdims: tuple
+    fuse: int
+    lo: tuple
+    hi: tuple
+    table_k: int
+    batch: int
+    wch: int
+    pk: int
+    pj: int
+    ti: int
+    h: int
+    pw: int
+    d: int
+    skew: int
+    smem_bytes: int
+
+    def _groups(self, axis: int, per: int) -> int:
+        R0, R1 = self.ranges[axis]
+        return -(-(R1 - R0) // per)
+
+    @property
+    def nwch(self) -> int:
+        return self._groups(0, self.wch)
+
+    @property
+    def nkg(self) -> int:
+        return self._groups(1, self.pk)
+
+    @property
+    def njg(self) -> int:
+        return self._groups(2, self.pj)
+
+    @property
+    def nit(self) -> int:
+        return self.bdims[3] // self.ti
+
+    @property
+    def nstream(self) -> int:
+        return self.batch * self.nwch * self.nkg * self.njg * self.nit
+
+    def blocks(self) -> list:
+        """Every block of the launch in grid order, decoded as the kernel
+        decodes it: ``(batch member, (w0, w1), (k0, k1), (j0, j1), (i0,
+        i1), edges)`` in bricks and i lanes; ``edges`` names the table's k
+        edges ("low", "high") whose clamp the block's intermediate levels
+        apply."""
+        (W0, W1), (K0, K1), (J0, J1) = self.ranges
+        clamps = self.fuse > 1
+        out = []
+        for b in range(self.nstream):
+            it, b = b % self.nit, b // self.nit
+            jg, b = b % self.njg, b // self.njg
+            kg, b = b % self.nkg, b // self.nkg
+            wc, sub = b % self.nwch, b // self.nwch
+            w0, k0 = W0 + wc * self.wch, K0 + kg * self.pk
+            j0 = J0 + jg * self.pj
+            k1 = min(k0 + self.pk, K1)
+            edges = (("low",) * (clamps and self.lo[1] > 0 and k0 == 0)
+                     + ("high",) * (clamps and self.hi[1] > 0
+                                    and k1 == self.table_k))
+            out.append((sub, (w0, min(w0 + self.wch, W1)), (k0, k1),
+                        (j0, min(j0 + self.pj, J1)),
+                        (it * self.ti, (it + 1) * self.ti), edges))
+        return out
+
+
+def stream4_slack(bdims, fuse: int, lo, hi, pj: int, rw: int,
+                  h: int) -> int:
+    """Floats after the rings that a level may read past its source plane
+    (``stream4_slack`` in ``pencil_stream_4d.cuh``): a tap's reach and 32
+    lanes, and with bricks less than :data:`STREAM_ROWS` deep in k a
+    quad's k rows beyond a block's."""
+    _, BK, BJ, _ = bdims
+    w0 = (pj * BJ + fuse * (lo[2] + hi[2])) * rw
+    return h + 40 + max(STREAM_ROWS - BK, 0) * w0
+
+
+def stream4_smem(bdims, fuse: int, lo, hi, wch: int, pk: int, pj: int,
+                 ti: int, h: int, d: int, skew: int = 0) -> int:
+    """Dynamic shared memory of one w-streaming block, laid out as
+    ``pencil_stream_4d.cuh`` lays it out: the level-0 ring (``rw + 1 +
+    d`` planes), the rings of levels 1 to F-1 (``rw + 1`` planes each, one
+    more where ``skew`` has the level's bit), every plane of level f
+    ``(pk * BK + (F - f) * rk) x (pj * BJ + (F - f) * rj)`` rows of ``ti +
+    2h`` floats, ``h`` floats before them and :func:`stream4_slack` after,
+    the count rounded up to even; then the brick table (``(wch + 2) x (pk
+    + 2) x (pj + 2)`` 64-bit offsets), two ints per level-0 row and two
+    buffers of ``pk * BK x pj * BJ`` 64-bit output row offsets."""
+    _, BK, BJ, _ = bdims
+    rw, rk, rj = (a + b for a, b in zip(lo[:3], hi[:3]))
+    RW = ti + 2 * h
+
+    def plane(f):
+        return ((pk * BK + (fuse - f) * rk) * (pj * BJ + (fuse - f) * rj)
+                * RW)
+
+    n = (rw + 1 + d) * plane(0)
+    n += sum((rw + 1 + (skew >> f & 1)) * plane(f) for f in range(1, fuse))
+    n = (h + n + stream4_slack(bdims, fuse, lo, hi, pj, RW, h) + 1) & ~1
+    rows0 = (pk * BK + fuse * rk) * (pj * BJ + fuse * rj)
+    return (4 * n + 8 * (wch + 2) * (pk + 2) * (pj + 2) + 8 * rows0
+            + 16 * pk * BK * pj * BJ)
+
+
+@lru_cache(maxsize=256)
+def _stream_plan_4d(bdims, ranges, table_k: int, fuse: int, lo, hi,
+                    batch: int, ntaps: int, loads: float,
+                    budget: int) -> Stream4Plan:
+    BW, BK, BJ, BI = bdims
+    (W0, W1), (K0, K1), (J0, J1) = ranges
+    F = fuse
+    nw, nk, npen = W1 - W0, K1 - K0, J1 - J0
+    pw = 4 if BI % 4 == 0 else 1
+    h = -(-F * max(lo[3], hi[3]) // pw) * pw
+    rw, rk, rj = (a + b for a, b in zip(lo[:3], hi[:3]))
+    # a chunk's planes from its first w brick stay below 2^20 (the
+    # kernel's division-free ring slots; BT_PLANE_SPAN)
+    chunks = sorted(c for c in {-(-nw // n) for n in range(1, nw + 1)}
+                    if (c + 2) * BW + F * (rw + 1) < PLANE_SPAN)
+    lookaheads = (2,) if F == 1 and ntaps < 40 else (2, 1)
+    skews = [((1 << F) - 1) ^ ((1 << (F - m)) - 1) for m in range(F)]
+    # shared-memory accesses per element of a level: its loads, one store,
+    # a tap's address per quad
+    per_elem = loads + 1 + ntaps / STREAM_ROWS
+
+    def quads(rows: int) -> int:
+        return -(-rows // STREAM_ROWS) * STREAM_ROWS
+
     best = None
-    for tw in (d for d in range(1, BW + 1) if BW % d == 0):
-        ti = 1
-        while ti <= min(BI, MAX_TILE_I):
-            if BI % ti == 0:
-                work, nbytes, n0 = _tile_cost(plan, tw, ti)
-                if (nbytes <= K4_SMEM_BUDGET and n0 < MAX_TILE_ELEMS
-                        and (best is None or work < best[0])):
-                    best = (work, tw, ti, nbytes)
-            ti *= 2
+    for ti in (t for t in range(pw, BI + 1, pw) if BI % t == 0):
+        rwid = ti + 2 * h
+        lanes = -(-ti // 32) * 32
+        for pj in range(1, min(npen, MAX_PENCILS) + 1):
+            wj = pj * BJ
+            for pk in range(1, min(nk, MAX_KROWS) + 1):
+                kt = pk * BK
+                for wch in chunks:
+                    L = wch * BW
+                    # levels 1 to F-1 over whole k rows of (j rows x rwid)
+                    # floats, level F over 32-lane chunks of the output
+                    # lanes, in quads of k rows
+                    work = (LOAD_COST * (kt + F * rk) * (wj + F * rj) * rwid
+                            * (L + F * rw)
+                            + (sum(quads(kt + (F - f) * rk)
+                                   * (wj + (F - f) * rj) * rwid
+                                   * (L + (F - f) * rw)
+                                   for f in range(1, F))
+                               + quads(kt) * wj * lanes * L) * per_elem)
+                    nblocks = (batch * -(-nw // wch) * -(-nk // pk)
+                               * -(-npen // pj) * (BI // ti))
+                    # one block per SM: a wave takes one block's work, its
+                    # barriers and its start
+                    waves = -(-nblocks // SM_COUNT)
+                    for d, skew in ((d, m) for d in lookaheads
+                                    for m in skews):
+                        smem = stream4_smem(bdims, F, lo, hi, wch, pk, pj,
+                                            ti, h, d, skew)
+                        if smem > budget:
+                            continue
+                        nsk = bin(skew).count("1")
+                        stall = ((L + F * rw + nsk)
+                                 * (STEP_COST + (F - 1 - nsk) * SYNC_COST)
+                                 + BLOCK_COST)
+                        cost = (waves * (work + stall), -d, -ti, pk, wch)
+                        if best is None or cost < best[0]:
+                            best = (cost, (wch, pk, pj, ti, d, skew, smem))
     if best is None:
-        raise ValueError(f"no K4 tile of brick {plan.bdims} fits "
-                         f"{K4_SMEM_BUDGET} bytes of shared memory at "
-                         f"fuse={plan.fuse}")
-    return best[1:]
+        raise ValueError(f"no K4 w-streaming block of bricks {bdims} fits "
+                         f"{budget} bytes of shared memory at fuse={F}")
+    wch, pk, pj, ti, d, skew, smem = best[1]
+    return Stream4Plan(ranges, bdims, F, lo, hi, table_k, batch, wch, pk,
+                       pj, ti, h, pw, d, skew, smem)
+
+
+def stream_plan_4d(plan: SweepPlan) -> Stream4Plan:
+    """Kernel K4's launch (4-D, linear taps): the footprint (w chunk, k
+    brick rows, pencils, i tile, lookahead, skewed levels) of least
+    estimated cost, shared-memory accesses, level-0 loads and per-step
+    stalls per wave of blocks over :data:`SM_COUNT` SMs, whose shared
+    memory fits :data:`K4_SMEM_BUDGET`.  Raises when none fits: K4 never
+    falls back."""
+    return _stream_plan_4d(tuple(plan.bdims), tuple(plan.ranges),
+                           plan.table.shape[1], plan.fuse, tuple(plan.lo),
+                           tuple(plan.hi), plan.batch,
+                           len(plan.taps.coeffs),
+                           stream_loads(plan.taps.offsets, K4_LAYOUTS),
+                           K4_SMEM_BUDGET)
+
+
+def stream4_footprint(plan: SweepPlan, wch: int, pk: int, pj: int, ti: int,
+                      d: int, skew: int) -> Stream4Plan:
+    """The launch of ``plan`` at another footprint, its shared memory
+    counted from that footprint; for measuring the planner's choice
+    against its neighbours."""
+    sp = stream_plan_4d(plan)
+    return Stream4Plan(sp.ranges, sp.bdims, sp.fuse, sp.lo, sp.hi,
+                       sp.table_k, sp.batch, wch, pk, pj, ti, sp.h, sp.pw,
+                       d, skew,
+                       stream4_smem(plan.bdims, plan.fuse, plan.lo, plan.hi,
+                                    wch, pk, pj, ti, sp.h, d, skew))
 
 
 def pencil_sweep_4d_kernel(x: torch.Tensor, table: torch.Tensor,
                            plan: SweepPlan) -> torch.Tensor:
-    """Launch kernel K4 on CUDA tensors; returns a fresh output whose
-    unwritten bricks are undefined."""
+    """Launch kernel K4 on CUDA tensors, as :func:`stream_plan_4d` plans
+    it; returns a fresh output whose unwritten bricks are undefined."""
+    return launch_4d(x, table, plan, None)
+
+
+def launch_4d(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
+              sp: Stream4Plan | None) -> torch.Tensor:
+    """K4 at ``sp``'s footprint (``None``: the planner's).  The shared
+    memory is counted again from the footprint, so no launch takes less
+    than its layout needs."""
     if x.device.type != "cuda" or table.device != x.device:
         raise ValueError("kernel K4 takes storage and table on one CUDA "
                          f"device, got {x.device} and {table.device}")
@@ -113,22 +298,28 @@ def pencil_sweep_4d_kernel(x: torch.Tensor, table: torch.Tensor,
                          f"{GJ}]")
     if len(plan.taps.coeffs) > 128:
         raise ValueError("kernel K4 takes at most 128 taps")
-    tw, ti, smem = tile_4d(plan)
+    sp = (stream_plan_4d(plan) if sp is None
+          else stream4_footprint(plan, sp.wch, sp.pk, sp.pj, sp.ti, sp.d,
+                                 sp.skew))
+    if sp.nstream > 2 ** 31 - 1:
+        raise ValueError("kernel K4 takes at most 2^31 - 1 blocks")
+    if sp.smem_bytes > K4_SMEM_BUDGET:
+        raise ValueError(f"a K4 block of {sp.smem_bytes} bytes of shared "
+                         f"memory exceeds {K4_SMEM_BUDGET}")
     (W0, W1), (K0, K1), (J0, J1) = plan.ranges
-    if plan.batch * (W1 - W0) * (K1 - K0) > 65535 or J1 - J0 > 65535:
-        raise ValueError("kernel K4 takes at most 65535 batch x w x k "
-                         "bricks and 65535 j pencils")
     (wlo, klo, jlo, ilo), (whi, khi, jhi, ihi) = plan.lo, plan.hi
     offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
     coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
     out = torch.empty_like(x)
+    # 16-byte pieces need 16-byte aligned storage (a view may start anywhere)
+    pw = sp.pw if x.data_ptr() % 16 == 0 else 1
     err = _build.library().bt_pencil_sweep_4d(
         x.data_ptr(), out.data_ptr(), table.data_ptr(),
         GW, GK, GJ, BW, BK, BJ, BI, W0, W1, K0, K1, J0, J1, plan.fuse,
-        wlo, whi, klo, khi, jlo, jhi, ilo, ihi, tw, ti, plan.batch,
-        plan.batch_stride, len(coeffs),
-        offs.ctypes.data, coeffs.ctypes.data, smem, K4_THREADS,
-        _build.stream_handle(x.device))
+        wlo, whi, klo, khi, jlo, jhi, ilo, ihi, plan.batch,
+        plan.batch_stride, sp.wch, sp.pk, sp.pj, sp.ti, sp.h, pw, sp.d,
+        sp.skew, len(coeffs), offs.ctypes.data, coeffs.ctypes.data,
+        sp.smem_bytes, K4_THREADS, _build.stream_handle(x.device))
     _build.check(err, "pencil_sweep_4d")
     pencil_sweep_4d_kernel.launches += 1
     return out

@@ -18,255 +18,70 @@
 //
 // With a batch of B ranks stacked along the brick axis (a card's ranks of
 // a mesh), rank s reads and writes the bricks of the same table with
-// s * stride added to every brick id: one more grid dimension, folded
-// into blockIdx.z with the w and k rows.
+// s * stride added to every brick id.
 //
 // What bounds it on the card.  As for K1: device-memory bytes in the end
-// (a 9-point f32 sweep does 18 flops per 8 bytes), but in this first
-// design the recomputed halo and the shared-memory work per element.  A
-// fused tile grows by F*radius on both sides of four axes, so the 4-D
-// halo costs more than the 3-D one: at brick (4, 8, 8, 512), F = 2 and
-// radius 1, a whole-brick tile 16 lanes wide needs 92 KB for level 0
-// alone.
+// (a 9-point f32 sweep does 18 flops per 8 bytes), inside the SM the
+// shared-memory accesses of the taps.  The first design (one block per 4-D
+// tile grown by F radii on all four axes, each level computed over a tile
+// that shrinks by one radius) loaded 6.75 level-0 elements and computed
+// about 3.9 stencil evaluations of 9 loads each per output at the 4-D
+// step's shape, held to 64 registers for two blocks per SM, and ran at 8%
+// to 13% of its bound (PERF.md).
 //
-// What the design does about it.  One block owns TW of the BW w-slices,
-// the whole BK x BJ face and TI lanes of i of one output brick; the host
-// picks (TW, TI) as the tile of least estimated work (level-0 loads plus
-// stencil evaluations per output element) whose level-0 and level-1 tiles
-// and row offsets fit the shared-memory budget it is given, and raises
-// when none fits.  The block loads the level-0 tile once, through the table
-// and with the clamps (row offsets computed once per tile row), computes
-// each level in shared memory over a tile that shrinks by one radius per
-// level, ping-ponging between two buffers, and writes level F to the
-// output brick.  Intermediate levels never touch device memory; the taps
-// of the 9-point star are unrolled with their byte offsets computed once
-// per level.  Neighbouring blocks load overlapping level-0 tiles (mostly
-// from L2) and recompute the overlap of each level.  Two blocks of 512
-// threads share an SM (two tiles fit its shared memory), so the kernel is
-// held to 64 registers a thread: at 69, one block per SM made the sweep
-// about 45% slower.
+// What this design does about it (pencil_stream_4d.cuh says how).  A block
+// streams a chunk of w bricks as a wavefront over the fused levels, each
+// level a ring of planes (k rows x j rows x i lanes) in shared memory, so
+// the w halo is loaded and computed once per chunk; streaming w, the
+// intermediate levels' k clamp is a store within the plane being computed
+// (no stash in device memory, no pre-roll).  Level 0 arrives by 16-byte
+// cp.async D planes ahead of use; threads take fixed elements of each
+// plane with no division, four k rows of a column each, and under the 4-D
+// star's layout compiled in (tap_layouts.cuh, LayoutStar9) a value that
+// several taps and rows read is one load kept in a register.  The planner
+// (codegen/pencil_kernel_4d.py, stream_plan_4d) picks the footprint: w
+// bricks per chunk, k brick rows and pencils per block, i tile, lookahead
+// and skewed level boundaries.  Each output's sum keeps its tap order, as
+// in the first design, so the two agree bit for bit.
 
-#include <cuda_runtime.h>
+#include "pencil_stream_4d.cuh"
 
-#define BT4_MAX_TAPS 128
-#define BT4_LOADS 4            // level-0 loads in flight per thread
-#define BT4_THREADS 512        // threads per block (K4_THREADS)
-
-struct Sweep4Taps {
-    int n;
-    int dw[BT4_MAX_TAPS];
-    int dk[BT4_MAX_TAPS];
-    int dj[BT4_MAX_TAPS];
-    int di[BT4_MAX_TAPS];
-    float c[BT4_MAX_TAPS];
-};
-
-struct Sweep4Geom {
-    int GW, GK, GJ;                     // table shape
-    int BW, BK, BJ, BI;                 // brick shape
-    int W0, K0, J0;                     // first output brick per axis
-    int WC, KC;                         // output bricks in w and k
-    long long stride;                   // bricks between batch members
-    int F;                              // fused levels
-    int wlo, whi, klo, khi, jlo, jhi, ilo, ihi;   // radius per side
-    int TW, TI;                         // w slices and i lanes per block
-};
-
-__device__ __forceinline__ int floor_div4(int a, int b) {
-    return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-__device__ __forceinline__ int clamp4(int v, int lo, int hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// floor(e / m) for 0 <= e < 2^20, from inv = 1.0f / m
-__device__ __forceinline__ int div4(int e, float inv) {
-    return (int)(((float)e + 0.5f) * inv);
-}
-
-// Shared memory: the level-0 tile, the level-1 tile (each later level
-// reuses the older buffer), then the level-0 row offsets.  NT > 0 is the
-// tap count known at compile time (taps unrolled); NT == 0 reads it from
-// `taps`.
-template <int NT>
-__global__ void __launch_bounds__(BT4_THREADS, 2)
+// One block of 512 threads per SM (shared memory allows no more at the
+// planner's footprints), so a thread may hold 128 registers.
+template <class L>
+__global__ void __launch_bounds__(BT_STREAM_THREADS, 1)
 pencil_sweep_4d_kernel(const float* __restrict__ x, float* __restrict__ out,
-                       const int* __restrict__ table, Sweep4Geom g,
+                       const int* __restrict__ table, Stream4Geom g,
                        Sweep4Taps taps) {
-    extern __shared__ float smem[];
-    const int F = g.F;
-    const int nit = g.BI / g.TI;
-    const int it = blockIdx.x % nit;
-    const int w0 = (blockIdx.x / nit) * g.TW;   // first w slice in brick
-    const int i0 = it * g.TI;
-    const int sub = blockIdx.z / (g.WC * g.KC);
-    const int wk = blockIdx.z - sub * (g.WC * g.KC);
-    const int wc = wk / g.KC;
-    const int wout = g.W0 + wc;
-    const int kout = g.K0 + (wk - wc * g.KC);
-    const int jout = g.J0 + blockIdx.y;
-    const int rw = g.wlo + g.whi, rk = g.klo + g.khi;
-    const int rj = g.jlo + g.jhi, ri = g.ilo + g.ihi;
-    const long long brick = (long long)g.BW * g.BK * g.BJ * g.BI;
-    // the batch member's storage starts sub * stride bricks in
-    x += (long long)sub * g.stride * brick;
-    out += (long long)sub * g.stride * brick;
-    const int tid = threadIdx.x, nthr = blockDim.x;
-    const int nt = NT > 0 ? NT : taps.n;
-
-    int nw = g.TW + F * rw, nk = g.BK + F * rk;
-    int nj = g.BJ + F * rj, ni = g.TI + F * ri;
-    const int n0 = nw * nk * nj * ni;
-    const int n1 = F > 1 ? (g.TW + (F - 1) * rw) * (g.BK + (F - 1) * rk)
-                               * (g.BJ + (F - 1) * rj) * (g.TI + (F - 1) * ri)
-                         : 0;
-    float* buf_a = smem;
-    float* buf_b = smem + n0;
-    long long* rowoff = (long long*)(smem + ((n0 + n1 + 1) & ~1));
-
-    // per row of the level-0 tile: where it starts in X (through the
-    // table, with the brick clamps in w, k and j)
-    const int wbase0 = wout * g.BW + w0 - F * g.wlo;
-    const int kbase0 = kout * g.BK - F * g.klo;
-    const int jbase0 = jout * g.BJ - F * g.jlo;
-    for (int r = tid; r < nw * nk * nj; r += nthr) {
-        const int tj = r % nj, q = r / nj;
-        const int tk = q % nk, tw = q / nk;
-        const int ww = wbase0 + tw, kk = kbase0 + tk, jj = jbase0 + tj;
-        const int wb = floor_div4(ww, g.BW), kb = floor_div4(kk, g.BK);
-        const int jb = floor_div4(jj, g.BJ);
-        const long long b =
-            table[(clamp4(wb, 0, g.GW - 1) * g.GK + clamp4(kb, 0, g.GK - 1))
-                      * g.GJ + clamp4(jb, 0, g.GJ - 1)];
-        rowoff[r] = b * brick
-                    + ((((long long)(ww - wb * g.BW) * g.BK + (kk - kb * g.BK))
-                        * g.BJ + (jj - jb * g.BJ)) * g.BI);
-    }
-    __syncthreads();
-
-    // level 0: the output tile grown by F radii, loaded through the
-    // table, BT4_LOADS loads in flight per thread
-    {
-        const int ibase = i0 - F * g.ilo;
-        const float inv = 1.0f / ni;
-        for (int e0 = tid; e0 < n0; e0 += nthr * BT4_LOADS) {
-            float v[BT4_LOADS];
-#pragma unroll
-            for (int u = 0; u < BT4_LOADS; ++u) {
-                const int e = e0 + u * nthr;
-                if (e < n0) {
-                    const int r = div4(e, inv);
-                    int ii = ibase + (e - r * ni);
-                    if (ii < 0 || ii >= g.BI)
-                        ii = ((ii % g.BI) + g.BI) % g.BI;
-                    v[u] = x[rowoff[r] + ii];
-                }
-            }
-#pragma unroll
-            for (int u = 0; u < BT4_LOADS; ++u) {
-                const int e = e0 + u * nthr;
-                if (e < n0) buf_a[e] = v[u];
-            }
-        }
-    }
-    __syncthreads();
-
-    // levels 1..F: each from the level below; F goes to the output brick
-    float* src = buf_a;
-    float* dst = buf_b;
-    for (int f = 1; f <= F; ++f) {
-        const int mw = g.TW + (F - f) * rw;
-        const int mk = g.BK + (F - f) * rk;
-        const int mj = g.BJ + (F - f) * rj;
-        const int mi = g.TI + (F - f) * ri;
-        const int n = mw * mk * mj * mi;
-        const float inv_i = 1.0f / mi, inv_j = 1.0f / mj, inv_k = 1.0f / mk;
-        const long long ob =
-            f == F ? table[(wout * g.GK + kout) * g.GJ + jout] : 0;
-        // tap offsets into the level below, in bytes, once per level
-        int boff[NT > 0 ? NT : 1];
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-            boff[t] = 4 * (((taps.dw[t] * nk + taps.dk[t]) * nj + taps.dj[t])
-                               * ni + taps.di[t]);
-        for (int e = tid; e < n; e += nthr) {
-            const int r = div4(e, inv_i);
-            const int ti = e - r * mi;
-            const int q = div4(r, inv_j);
-            const int tj = r - q * mj;
-            const int tw = div4(q, inv_k);
-            const int tk = q - tw * mk;
-            // the level below has its origin one radius further out
-            const float* p = src + (((tw + g.wlo) * nk + (tk + g.klo)) * nj
-                                    + (tj + g.jlo)) * ni + ti + g.ilo;
-            float acc = 0.0f;
-            if constexpr (NT > 0) {
-                const char* pb = (const char*)p;
-#pragma unroll
-                for (int t = 0; t < NT; ++t)
-                    acc += taps.c[t] * *(const float*)(pb + boff[t]);
-            } else {
-                for (int t = 0; t < nt; ++t)
-                    acc += taps.c[t]
-                           * p[((taps.dw[t] * nk + taps.dk[t]) * nj
-                                + taps.dj[t]) * ni + taps.di[t]];
-            }
-            if (f == F)
-                out[ob * brick
-                    + ((((long long)(w0 + tw) * g.BK + tk) * g.BJ + tj)
-                       * g.BI) + i0 + ti] = acc;
-            else
-                dst[e] = acc;
-        }
-        if (f == F) break;
-        __syncthreads();
-        // k clamp: rows beyond the table take the clamped row's values
-        const int kbase = kout * g.BK - (F - f) * g.klo;
-        const int ktop = g.GK * g.BK;
-        if (kbase < 0 || kbase + mk > ktop) {
-            const int nrow = mj * mi;
-            const float inv_r = 1.0f / nrow;
-            for (int e = tid; e < n; e += nthr) {
-                const int q = div4(e, inv_r);     // tw * mk + tk
-                const int tk = q % mk;
-                const int kk = kbase + tk;
-                if (kk < 0 || kk >= ktop) {
-                    const int kb = floor_div4(kk, g.BK);
-                    const int ks = clamp4(kb, 0, g.GK - 1) * g.BK
-                                   + (kk - kb * g.BK) - kbase;
-                    dst[e] = dst[e + (ks - tk) * nrow];
-                }
-            }
-            __syncthreads();
-        }
-        float* t = src;
-        src = dst;
-        dst = t;
-        nw = mw;
-        nk = mk;
-        nj = mj;
-        ni = mi;
-    }
+    extern __shared__ __align__(16) float smem[];
+    stream4_block<L>(x, out, table, g, taps, blockIdx.x, smem);
 }
 
-template <int NT>
-static cudaError_t launch4(dim3 grid, int threads, int smem_bytes,
+template <class L>
+static cudaError_t launch4(int blocks, int threads, int smem_bytes,
                            cudaStream_t stream, const float* x, float* out,
-                           const int* table, const Sweep4Geom& g,
+                           const int* table, const Stream4Geom& g,
                            const Sweep4Taps& taps) {
     cudaError_t err = cudaFuncSetAttribute(
-        pencil_sweep_4d_kernel<NT>,
+        pencil_sweep_4d_kernel<L>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) {
         cudaGetLastError();
         return err;
     }
-    pencil_sweep_4d_kernel<NT><<<grid, threads, smem_bytes, stream>>>(
+    pencil_sweep_4d_kernel<L><<<blocks, threads, smem_bytes, stream>>>(
         x, out, table, g, taps);
     return cudaGetLastError();
 }
 
+// Launch arguments: output w bricks [W0, W1) in chunks of WCH, k brick
+// rows [K0, K1) PK and pencils [J0, J1) PJ per block, TI lanes, level-0
+// margin H, piece PW (4 or 1 floats), D planes ahead; bit f of skew (1 <=
+// f < F): levels f and f+1 skewed by a plane.  smem_bytes must hold the
+// block's layout (stream4_smem_bytes), F radii stay within a brick on w, k
+// and j, and a chunk's planes stay below BT_PLANE_SPAN; the taps' offsets
+// pick the body (the 4-D star's layout if they equal it, else the generic
+// one).
 extern "C" int bt_pencil_sweep_4d(const void* x, void* out, const void* table,
                                   int GW, int GK, int GJ,
                                   int BW, int BK, int BJ, int BI,
@@ -274,20 +89,36 @@ extern "C" int bt_pencil_sweep_4d(const void* x, void* out, const void* table,
                                   int J0, int J1, int F,
                                   int wlo, int whi, int klo, int khi,
                                   int jlo, int jhi, int ilo, int ihi,
-                                  int TW, int TI, int batch, int stride,
-                                  int ntaps,
+                                  int batch, int stride, int WCH, int PK,
+                                  int PJ, int TI, int H, int PW, int D,
+                                  int skew, int ntaps,
                                   const int* tap_offsets,
                                   const float* tap_coeffs, int smem_bytes,
                                   int threads, void* stream) {
-    if (ntaps < 1 || ntaps > BT4_MAX_TAPS || F < 1 || TW < 1 || TI < 1
-        || threads < 1 || threads > BT4_THREADS
-        || BW % TW || BI % TI || batch < 1
-        || (long long)batch * (W1 - W0) * (K1 - K0) > 65535
-        || J1 - J0 > 65535)
+    if (ntaps < 1 || ntaps > BT4_MAX_TAPS || F < 1 || F > 30 || batch < 1
+        || W1 <= W0 || K1 <= K0 || J1 <= J0 || WCH < 1 || PK < 1 || PJ < 1
+        || TI < 1 || BI % TI || (PW != 1 && PW != 4) || BI % PW || TI % PW
+        || H % PW || H < F * (ilo > ihi ? ilo : ihi) || (D != 1 && D != 2)
+        || (skew & ~((1 << F) - 2)) || F * wlo > BW || F * whi > BW
+        || F * klo > BK || F * khi > BK || F * jlo > BJ || F * jhi > BJ
+        || (long long)BW * BK * BJ * BI > 0x7fffffffLL
+        || threads < 32 || threads > BT_STREAM_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
-    Sweep4Geom g = {GW, GK, GJ, BW, BK, BJ, BI, W0, K0, J0, W1 - W0, K1 - K0,
-                    (long long)stride, F, wlo, whi, klo, khi, jlo, jhi, ilo,
-                    ihi, TW, TI};
+    const int nwch = (W1 - W0 + WCH - 1) / WCH;
+    const int nkg = (K1 - K0 + PK - 1) / PK;
+    const int njg = (J1 - J0 + PJ - 1) / PJ, nit = BI / TI;
+    Stream4Geom g = {GW, GK, GJ, BW, BK, BJ, BI, W0, W1, WCH, nwch,
+                     K0, K1, PK, nkg, J0, J1, PJ, njg, TI, nit, H, PW, D, F,
+                     wlo, whi, klo, khi, jlo, jhi, ilo, ihi,
+                     (long long)stride, skew};
+    const long long blocks = (long long)batch * nwch * nkg * njg * nit;
+    // a chunk's planes, counted from its first w brick, stay below
+    // BT_PLANE_SPAN (stream4_block's division-free ring slots and bricks)
+    const long long span = (long long)(WCH + 2) * BW
+                           + (long long)F * (wlo + whi + 1);
+    if (blocks > 0x7fffffffLL || stream4_smem_bytes(g) > smem_bytes
+        || span >= BT_PLANE_SPAN)
+        return (int)cudaErrorInvalidValue;
     Sweep4Taps taps;
     taps.n = ntaps;
     for (int t = 0; t < ntaps; ++t) {
@@ -297,13 +128,12 @@ extern "C" int bt_pencil_sweep_4d(const void* x, void* out, const void* table,
         taps.di[t] = tap_offsets[4 * t + 3];
         taps.c[t] = tap_coeffs[t];
     }
-    dim3 grid((BI / TI) * (BW / TW), J1 - J0, batch * (W1 - W0) * (K1 - K0));
     cudaStream_t st = (cudaStream_t)stream;
     const float* xf = (const float*)x;
     const int* tb = (const int*)table;
-    if (ntaps == 9)
-        return (int)launch4<9>(grid, threads, smem_bytes, st, xf,
-                               (float*)out, tb, g, taps);
-    return (int)launch4<0>(grid, threads, smem_bytes, st, xf, (float*)out,
-                           tb, g, taps);
+    if (layout4_matches<LayoutStar9>(taps))
+        return (int)launch4<LayoutStar9>((int)blocks, threads, smem_bytes,
+                                         st, xf, (float*)out, tb, g, taps);
+    return (int)launch4<LayoutRuntime>((int)blocks, threads, smem_bytes, st,
+                                       xf, (float*)out, tb, g, taps);
 }

@@ -1,17 +1,19 @@
-// The tap layouts kernel K1 compiles in (pencil_stream.cuh, stream_block).
+// The tap layouts kernels K1 and K4 compile in (pencil_stream.cuh,
+// stream_block; pencil_stream_4d.cuh, stream4_block).
 //
-// A layout is the offsets (dk, dj, di) of a linear stencil's taps, in tap
-// order, known at compile time.  Under a layout each thread computes
-// BT_UR output rows of a column at once, and the compiler sees which
-// (plane, row, lane) each tap of each row reads: a value that several
-// taps and rows read is one shared-memory load, kept in a register.  The
-// taps' coefficients stay kernel parameters, so one layout serves every
-// stencil with those offsets (s7pt and mpi7pt share the star's); the
-// entry point (bt_pencil_sweep) compares the runtime offsets with each
-// layout and launches the body of the one they equal, or the generic body
-// (the offsets read at run time, one load per tap and row) for any other
-// tap list.  The orders are the corpus's (codegen/taps.py merges taps in
-// first-seen order), which each output's sum keeps.
+// A layout is the offsets (dk, dj, di) of a linear stencil's taps, (dw,
+// dk, dj, di) for K4, in tap order, known at compile time.  Under a
+// layout each thread computes BT_UR output rows of a column at once, and
+// the compiler sees which (plane, row, lane) each tap of each row reads: a
+// value that several taps and rows read is one shared-memory load, kept in
+// a register.  The taps' coefficients stay kernel parameters, so one
+// layout serves every stencil with those offsets (s7pt and mpi7pt share
+// the star's); the entry points (bt_pencil_sweep, bt_pencil_sweep_4d)
+// compare the runtime offsets with each layout and launch the body of the
+// one they equal, or the generic body (the offsets read at run time, one
+// load per tap and row) for any other tap list.  The orders are the
+// corpus's (codegen/taps.py merges taps in first-seen order), which each
+// output's sum keeps.
 #pragma once
 
 #include "pencil_sweep.cuh"
@@ -74,7 +76,32 @@ struct LayoutCube125 {
     }
 };
 
-// the generic body: the taps' offsets read at run time
+// the 4-D 9-point star (K4): centre, +i, -i, +j, -j, +k, -k, +w, -w
+struct LayoutStar9 {
+    static constexpr int N = 9, R = 1;
+    __host__ __device__ static constexpr int dw(int t) {
+        constexpr int v[N] = {
+            0, 0, 0, 0, 0, 0, 0, 1, -1};
+        return v[t];
+    }
+    __host__ __device__ static constexpr int dk(int t) {
+        constexpr int v[N] = {
+            0, 0, 0, 0, 0, 1, -1, 0, 0};
+        return v[t];
+    }
+    __host__ __device__ static constexpr int dj(int t) {
+        constexpr int v[N] = {
+            0, 0, 0, 1, -1, 0, 0, 0, 0};
+        return v[t];
+    }
+    __host__ __device__ static constexpr int di(int t) {
+        constexpr int v[N] = {
+            0, 1, -1, 0, 0, 0, 0, 0, 0};
+        return v[t];
+    }
+};
+
+// the generic body (K1 and K4): the taps' offsets read at run time
 struct LayoutRuntime {
     static constexpr int N = 0, R = 0;
 };

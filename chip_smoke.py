@@ -15,7 +15,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    a per-row sweep (both k edges of a non-periodic table at fuse 1 to 4,
    mpi125pt ghost-inclusive at fuse 1 and 2, s27pt through the generic
    body, two brick rows, bricks 96 deep, a batch of 16), K4 (fused 4-D
-   sweep) at a tiny and the full 4-D shape in four configurations, K6
+   sweep, w-streaming blocks) at a tiny and the full 4-D shape in four
+   configurations, through its generic body, at both k edges of the
+   table with fuse 1 to 3 and batched over three ranks, K6
    (2-D whole-row sweep) at the full 16384^2 storage (9-point box at
    fuse=1 and fuse=4, the wave system) and on a tiny radius-2 stencil
    through the edge clamps, K8 (flat-pencil sweep) on tiny tables and at
@@ -145,9 +147,6 @@ STRONG_ORACLE = ((256,) * 3, (32,) * 3, (8, 8, 8))
 DIMS5_P, MESH5_P = (16, 16, 16, 16, 256), (1, 1, 1, 1, 2)
 # H100 SXM published peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s
 # outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
-
-
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -360,22 +359,43 @@ def check_sweep(name, fn, x, err, key):
 
 def phase_kernels_4d(err: dict) -> None:
     """K4 against its plain version at the tiny and the full 4-D shape,
-    and batched over three ranks at the tiny shape."""
+    through the generic body (a stencil other than the star), at both k
+    edges of the table with fuse 1 to 3, and batched over three ranks at
+    the tiny shape."""
     import torch
 
+    from bricklib_tpu_torch.bench.k4_regimes import mixed_radius
     from bricklib_tpu_torch.codegen.pencil_kernel_4d import (pencil_sweep_4d,
-                                                             tile_4d)
+                                                             stream_plan_4d)
     from bricklib_tpu_torch.core import random_storage
     from bricklib_tpu_torch.stencils import bench_params
+
+    def label(fn):
+        sp = stream_plan_4d(fn.plan)
+        return (f"w{sp.wch} k{sp.pk} j{sp.pj} i{sp.ti} d{sp.d} "
+                f"skew{sp.skew} {sp.smem_bytes} B")
 
     for dims, bd in ((DIMS4_TINY, BD4_TINY), (DIMS4, BD4)):
         dec = decomposition_4d(dims, bd)
         x = random_storage(dec, seed=6, device="cuda")
+        G = dec.grid.shape[:3]
+        ghost = dict(w_range=(0, G[0]), k_range=(0, G[1]),
+                     j_range=(0, G[2]))
         for name, grid, ranges, fuse in sweep_cases_4d(dec):
             fn = make_sweep_4d(dec, grid, ranges, fuse)
-            tw, ti, smem = tile_4d(fn.plan)
-            check_sweep(f"{dims} {name} tile w{tw} i{ti} {smem} B", fn, x,
-                        err, "K4")
+            check_sweep(f"{dims} {name} {label(fn)}", fn, x, err, "K4")
+        fn = pencil_sweep_4d(mixed_radius(), dec.grid, dec.bdims,
+                             dec.nbricks, {}, fuse=FUSE4, **ghost)
+        check_sweep(f"{dims} generic taps fuse=2 ghost-inclusive "
+                    f"{label(fn)}", fn, x, err, "K4")
+        if dims == DIMS4_TINY:
+            # the intermediate levels' k clamp at each table edge alone
+            for fuse in (1, 2, 3):
+                for kr in ((0, 1), (G[1] - 1, G[1])):
+                    fn = make_sweep_4d(dec, dec.grid, dict(
+                        ghost, k_range=kr), fuse)
+                    check_sweep(f"{dims} fuse={fuse} k bricks {kr} "
+                                f"{label(fn)}", fn, x, err, "K4")
         del x
         torch.cuda.empty_cache()
     # batched over the ranks of a card, as a 4-D mesh step sweeps them
@@ -1421,43 +1441,12 @@ def report(card: str, name: str, res: dict) -> None:
           f"of the copy speed of light per iteration")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(ms, what bounds it): the least time the card could take to move
-    ``nbytes`` through device memory and do ``flops`` f32 operations."""
-    t_b, t_f = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-
-
 def row(ms, plain_ms, nbytes, flops, library_ms) -> dict:
+    from bricklib_tpu_torch.bench.roofline import bound
+
     b_ms, b_by = bound(nbytes, flops)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
-
-
-def sweep_work(plan) -> tuple[int, int]:
-    """(bytes, f32 operations) one sweep (K1, K4 or K6) must move and do:
-    each brick it reads through the table (the output bricks and their
-    neighbours, whole) read once per input field, each brick it writes
-    written once per output, and a multiply and an add per folded tap,
-    output element and fused level."""
-    import numpy as np
-
-    t = plan.table
-    if hasattr(plan, "y_range"):
-        ranges, nin, nout = (plan.y_range,), len(plan.fields), len(plan.taps)
-        ntaps, batch, stride = sum(len(x) for x in plan.taps), 1, 0
-    else:
-        ranges, nin, nout = plan.ranges, 1, 1
-        ntaps = len(plan.taps.coeffs)
-        batch, stride = plan.batch, plan.batch_stride
-    win = t[tuple(slice(max(a - 1, 0), min(b + 1, n))
-                  for (a, b), n in zip(ranges, t.shape))]
-    nread = len(np.unique(np.concatenate(
-        [win.ravel() + s * stride for s in range(batch)])))
-    nwritten = len(plan.written_bricks())
-    belems = int(np.prod(plan.bdims))
-    return (4 * belems * (nin * nread + nout * nwritten),
-            2 * ntaps * plan.fuse * nwritten * belems)
 
 
 def phase_times(card: str) -> dict:
@@ -1563,6 +1552,8 @@ def print_times(card: str, key: str, name: str, r: dict) -> None:
 def time_sweeps(card: str, key: str, cases, x) -> dict:
     """:func:`row` of sweeps (K1 or K4) summed over ``cases``; no single
     PyTorch call computes a fused sweep over brick storage."""
+    from bricklib_tpu_torch.bench.roofline import sweep_work
+
     import torch
 
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_plain
@@ -1700,6 +1691,8 @@ def phase_times_fused(card: str) -> dict:
     tap and output) and, where the library call would stand, the
     composition it replaces: the PUT exchange then the ghost-inclusive
     K1."""
+    from bricklib_tpu_torch.bench.roofline import sweep_work
+
     import dataclasses
 
     import torch
@@ -1830,6 +1823,8 @@ def phase_times_3d(card: str) -> dict:
     each with its plain version, its bound and one ``nn.Conv3d``
     (circular padding, composed weights, TF32 off).  The mpi125pt rows
     share the bound of the fewer operations, the factorized form's."""
+    from bricklib_tpu_torch.bench.roofline import sweep_work
+
     import numpy as np
     import torch
 
@@ -1932,6 +1927,8 @@ def phase_times_2d(card: str) -> dict:
     a dense periodic array (checked against the kernel at 1e-4 before it
     is timed).  The ``fuse=4`` 9-point box, the 2-D path's sweep, is the
     kernel's record."""
+    from bricklib_tpu_torch.bench.roofline import sweep_work
+
     import torch
 
     from bricklib_tpu_torch.codegen.pencil_kernel_2d import (

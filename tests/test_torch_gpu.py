@@ -7,7 +7,8 @@ The file imports no JAX, so it also runs on a machine without JAX, where
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 
 K1 (also batched over a subdomain stack), K4 (also batched over the ranks
-of a card), K6 and K8 are compared on the bricks they write, K7 on the
+of a card, at the table's k edges, through its generic body and at other
+footprints), K6 and K8 are compared on the bricks they write, K7 on the
 whole padded array, at abs-or-rel 1e-5 (FMA contraction and summation
 order); K2, K3, K5, K9 and K10 only copy, so they must be bit-exact.  The
 remote-copy kernels run with four (K9) and two (K10) ranks on one card,
@@ -23,6 +24,7 @@ import torch
 
 from bricklib_tpu_torch import st
 from bricklib_tpu_torch.api import Problem
+from bricklib_tpu_torch.bench.k4_regimes import mixed_radius
 from bricklib_tpu_torch.bench.roofline import copy_storage, copy_storage_plain
 from bricklib_tpu_torch.codegen.fused_exchange import (
     brick_rows, fusedx_plain, pencil_sweep_fusedx, pencil_sweep_fusedx_kernel)
@@ -39,7 +41,8 @@ from bricklib_tpu_torch.codegen.pencil_kernel import (_launch_stream,
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
     pencil_sweep_2d, pencil_sweep_2d_kernel, pencil_sweep_2d_plain)
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
-    pencil_sweep_4d, pencil_sweep_4d_kernel)
+    launch_4d, pencil_sweep_4d, pencil_sweep_4d_kernel, stream4_footprint,
+    stream_plan_4d)
 from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu_torch.comm.exchange import (copy_intervals,
                                               copy_intervals_plain,
@@ -167,6 +170,103 @@ def test_sweep_4d_kernel_matches_plain(cuda, fuse, periodic, skip):
                               fn.plan)
     w = fn.plan.written_bricks()
     assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
+
+
+def _k4_check(cuda, fn, x, sp=None):
+    """K4 (``sp``: a launch other than the planner's) against its plain
+    version on the bricks it writes, at abs-or-rel 1e-5."""
+    before = pencil_sweep_4d_kernel.launches
+    table = torch.from_numpy(fn.plan.table).to(cuda)
+    got = fn(x) if sp is None else launch_4d(x, table, fn.plan, sp)
+    assert pencil_sweep_4d_kernel.launches == before + 1
+    want = pencil_sweep_plain(x, table, fn.plan)
+    torch.cuda.synchronize()
+    w = fn.plan.written_bricks()
+    assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 3])
+@pytest.mark.parametrize("edges", ["low", "high", "both"])
+def test_sweep_4d_kernel_at_table_edges(cuda, fuse, edges):
+    """K4 with k ranges that start at 0 and end at GK on a non-periodic
+    table (the blocks there store the intermediate levels' clamped rows),
+    at F 1 to 3, ghost-inclusive in w and j."""
+    dec = _dec4()
+    G = dec.grid.shape[:3]
+    kr = {"low": (0, 1), "high": (G[1] - 1, G[1]), "both": (0, G[1])}[edges]
+    fn = pencil_sweep_4d("mpi9pt", dec.grid, dec.bdims, dec.nbricks,
+                         bench_params(), fuse=fuse, w_range=(0, G[0]),
+                         k_range=kr, j_range=(0, G[2]))
+    _k4_check(cuda, fn, random_storage(dec, seed=30, device=cuda))
+
+
+@pytest.mark.parametrize("fuse,periodic", [(1, False), (2, False),
+                                           (2, True)])
+def test_sweep_4d_kernel_generic_taps(cuda, fuse, periodic):
+    """A tap list other than the 4-D star runs K4's generic body."""
+    dec = BrickDecomp(dims=(4, 8, 8, 16), ghost_depth=(2, 4, 4, 0),
+                      bdims=(2, 4, 4, 16)).initialize(
+        skinlist_by_name("good", 4))
+    G = dec.grid.shape[:3]
+    kw = ({} if periodic else
+          dict(w_range=(0, G[0]), k_range=(0, G[1]), j_range=(0, G[2])))
+    grid = dec.periodic_grid((0, 1, 2, 3)) if periodic else dec.grid
+    fn = pencil_sweep_4d(mixed_radius(), grid, dec.bdims, dec.nbricks, {},
+                         fuse=fuse, **kw)
+    _k4_check(cuda, fn, random_storage(dec, seed=31, device=cuda))
+
+
+@pytest.mark.parametrize("wch,pk,pj,ti,d,skew", [
+    (1, 1, 1, 4, 1, 0), (2, 2, 3, 8, 2, 2), (4, 1, 2, 16, 1, 6),
+    (3, 2, 2, 16, 2, 0)])
+def test_sweep_4d_kernel_footprints(cuda, wch, pk, pj, ti, d, skew):
+    """K4 at footprints other than the planner's (w chunks, k brick rows
+    and pencils per block, i tiles, lookahead, skewed levels), F = 3 over
+    every brick of the table."""
+    dec = _dec4()
+    G = dec.grid.shape[:3]
+    fn = pencil_sweep_4d("mpi9pt", dec.grid, dec.bdims, dec.nbricks,
+                         bench_params(), fuse=3, w_range=(0, G[0]),
+                         k_range=(0, G[1]), j_range=(0, G[2]))
+    sp = stream4_footprint(fn.plan, wch, pk, pj, ti, d, skew)
+    _k4_check(cuda, fn, random_storage(dec, seed=32, device=cuda), sp)
+
+
+def test_sweep_4d_kernel_refuses_too_little_shared_memory(cuda,
+                                                          monkeypatch):
+    """The C entry point refuses a launch whose shared memory is smaller
+    than its block's layout."""
+    import dataclasses
+
+    from bricklib_tpu_torch.codegen import pencil_kernel_4d
+
+    dec = _dec4()
+    fn = pencil_sweep_4d("mpi9pt", dec.periodic_grid((0, 1, 2, 3)),
+                         dec.bdims, dec.nbricks, bench_params(), fuse=2)
+    x = random_storage(dec, seed=33, device=cuda)
+    sp = stream_plan_4d(fn.plan)
+    short = dataclasses.replace(sp, smem_bytes=sp.smem_bytes - 8)
+    monkeypatch.setattr(pencil_kernel_4d, "stream4_footprint",
+                        lambda *a: short)
+    table = torch.from_numpy(fn.plan.table).to(cuda)
+    with pytest.raises(RuntimeError, match="pencil_sweep_4d"):
+        launch_4d(x, table, fn.plan, sp)
+    monkeypatch.undo()
+    _k4_check(cuda, fn, x)
+
+
+@pytest.mark.parametrize("dims", [(4, 16, 16, 16), (8, 16, 16, 64)])
+def test_4d_problem_on_card_matches_cpu(cuda, dims):
+    """``Problem`` at rank 4 (K4 on the card, its plain version on the
+    CPU) at the tiny shape of ``tests/test_torch_problem.py`` and the small
+    one of ``chip_smoke.py``, two steps."""
+    g = random_array(dims, np.float32, 34)
+    got = Problem(dims=dims, stencil="mpi9pt", st_iter=2,
+                  device=cuda).init(array=g).step(2).result()
+    want = Problem(dims=dims, stencil="mpi9pt", st_iter=2,
+                   device="cpu").init(array=g).step(2).result()
+    assert np.isfinite(got).all()
+    assert compare_arrays(got, want, 1e-5)
 
 
 def _strong_plan():

@@ -206,9 +206,10 @@ def test_planner_takes_tall_bricks_and_tables():
         assert (sp.kch + 2) * bdims[0] + 4 * 3 < 1 << 20
 
 
-def _compiled_layouts() -> dict:
-    """The layouts of ``csrc/tap_layouts.cuh``, parsed: name -> (dk, dj,
-    di) per tap."""
+def _compiled_layouts(axes: str = "dk dj di") -> dict:
+    """The layouts of ``csrc/tap_layouts.cuh`` with exactly the offset
+    arrays ``axes`` (K1's: ``dk dj di``; K4's: ``dw dk dj di``), parsed:
+    name -> offsets per tap."""
     import re
     from pathlib import Path
 
@@ -219,10 +220,10 @@ def _compiled_layouts() -> dict:
                                  re.S):
         arrs = {a: [int(v) for v in vals.replace("\n", " ").split(",")]
                 for a, vals in re.findall(
-                    r"int (dk|dj|di)\(int t\) \{\s*constexpr int v\[N\] = "
-                    r"\{([^}]*)\}", body)}
-        if arrs:
-            out[name] = np.stack([arrs["dk"], arrs["dj"], arrs["di"]], 1)
+                    r"int (dw|dk|dj|di)\(int t\) \{\s*constexpr int "
+                    r"v\[N\] = \{([^}]*)\}", body)}
+        if sorted(arrs) == sorted(axes.split()):
+            out[name] = np.stack([arrs[a] for a in axes.split()], 1)
     return out
 
 

@@ -26,7 +26,8 @@ from bricklib_tpu_torch import st as port_st
 from bricklib_tpu_torch import stencils as port_stencils
 from bricklib_tpu_torch.codegen import pencil_kernel_4d
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
-    pencil_sweep_4d, pencil_sweep_4d_kernel, pencil_sweep_4d_plain, tile_4d)
+    pencil_sweep_4d, pencil_sweep_4d_kernel, pencil_sweep_4d_plain,
+    stream_plan_4d)
 from bricklib_tpu_torch.convert import storage_from_reference
 
 BD = (2, 2, 4, 16)
@@ -118,15 +119,22 @@ def test_plain_version_is_the_rank_generic_plain_sweep():
 
 
 def test_tile_of_the_4d_step():
-    """At the 4-D step's shape (brick (4, 8, 8, 512), fuse 2, radius 1)
-    the least-work tile that fits the budget is the whole w extent and
-    8 i lanes; a budget too small for any tile raises."""
+    """At the 4-D step's shape (brick (4, 8, 8, 512), fuse 2, radius 1,
+    owned bricks) the planner streams each block through all four w bricks
+    of the range, one k brick row and one pencil at a time, 32 i lanes,
+    two planes ahead, levels 1 and 2 skewed: a block's shared memory holds
+    five level-0 planes of 12 x 12 rows of 40 floats and four level-1
+    planes of 10 x 10 rows, within the 227 KB a block may take."""
     dec = _dec((4, 8, 8, 512), (16, 64, 128, 512), port_comm)
     fn = pencil_sweep_4d("mpi9pt", dec.grid, dec.bdims, dec.nbricks,
                          bench_params(), fuse=2)
     assert dec.nbricks == 1081
-    tw, ti, smem = tile_4d(fn.plan)
-    assert (tw, ti) == (4, 8) and smem <= pencil_kernel_4d.K4_SMEM_BUDGET
+    sp = stream_plan_4d(fn.plan)
+    assert (sp.wch, sp.pk, sp.pj, sp.ti, sp.h, sp.d, sp.skew) == (
+        4, 1, 1, 32, 4, 2, 2)
+    assert sp.smem_bytes <= pencil_kernel_4d.K4_SMEM_BUDGET
+    assert sp.smem_bytes >= 4 * (5 * 144 * 40 + 4 * 100 * 40)
+    assert sp.nstream == 8 * 16 * 16
 
 
 def test_no_tile_raises(monkeypatch):
@@ -134,8 +142,8 @@ def test_no_tile_raises(monkeypatch):
     dec = _dec(pkg=port_comm)
     fn = pencil_sweep_4d("mpi9pt", dec.grid, BD, dec.nbricks,
                          bench_params(), fuse=2)
-    with pytest.raises(ValueError, match="no K4 tile"):
-        tile_4d(fn.plan)
+    with pytest.raises(ValueError, match="no K4 w-streaming block"):
+        stream_plan_4d(fn.plan)
 
 
 def _bad(name="mpi9pt", bd=BD, grid_shape=(4, 5, 4), **kw):
