@@ -42,11 +42,11 @@ SIGNATURES = {
                        + [_VOID, _VOID, _INT, _INT, _VOID],
     "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 33
                           + [_VOID, _VOID, _INT, _INT, _VOID],
-    "bt_pencil_sweep_2d": [_VOID, _VOID, _VOID] + [_INT] * 15
+    "bt_pencil_sweep_2d": [_VOID, _VOID, _VOID] + [_INT] * 20
                           + [_VOID] * 4 + [_INT, _INT, _VOID],
-    "bt_pencil_sweep_mxu": [_VOID, _VOID, _VOID] + [_INT] * 16
-                           + [_VOID, _INT] + [_VOID] * 4
-                           + [_INT, _INT, _VOID],
+    "bt_pencil_sweep_mxu": [_VOID, _VOID, _VOID] + [_INT] * 23
+                           + [_VOID, _INT, _VOID, _VOID, _INT]
+                           + [_VOID] * 3 + [_INT, _INT, _VOID],
     "bt_pencil_sweep_nd": [_VOID, _INT, _VOID, _VOID, _INT] + [_VOID] * 5
                           + [_INT, _INT, _VOID],
     "bt_dense_stencil": [_VOID, _VOID] + [_INT] * 14 + [_VOID] * 5

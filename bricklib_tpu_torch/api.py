@@ -297,7 +297,8 @@ class Problem:
             info = {"kernel": "K8 pencil_sweep_mxu",
                     "w_profiles": kern.n_wprofiles,
                     "taps": [plan.n_ktaps()]}
-            info["tile_i"], info["smem_bytes"] = plan.tile()
+            sp = plan.stream()
+            info["tile_i"], info["smem_bytes"] = sp.ti, sp.smem_bytes
         elif nd == 2:
             fuse = 1
             if _sch_fuse is not None:
@@ -328,7 +329,8 @@ class Problem:
                     "taps": (None if plan.taps is None
                              else [len(t) for t in plan.taps])}
             if plan.taps is not None:
-                info["tile_x"], info["smem_bytes"] = plan.tile()
+                sp = plan.stream()
+                info["tile_x"], info["smem_bytes"] = sp.tx, sp.smem_bytes
         else:
             # the fused exchange runs its own first sweep at fuse=1, so
             # it fuses only the remaining st_iter - 1 iterations

@@ -24,7 +24,8 @@ result equals the pencil sweep at fuse 1 on the same table
 
 A CPU tensor takes :func:`pencil_sweep_mxu_plain`, which spells the
 factorized form out with ``torch.matmul``; a CUDA tensor launches kernel
-K8 (``csrc/pencil_sweep_mxu.cu``) or raises.  ``tile_j``, ``lookahead``,
+K8 (``csrc/pencil_sweep_mxu.cu``, k-streaming blocks as
+:meth:`MxuPlan.stream` plans them) or raises.  ``tile_j``, ``lookahead``,
 ``vmem_limit_bytes`` and ``interpret`` are TPU scheduling arguments,
 accepted and ignored.
 """
@@ -32,6 +33,7 @@ accepted and ignored.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -44,19 +46,46 @@ from .ir import fold_linear
 from .pencil_kernel import FEATURES_ITEM, _is_f32, check_table
 from .taps import as_ir
 
-__all__ = ["K8_RADII", "K8_SMEM_BUDGET", "K8_THREADS", "MxuPlan",
-           "flatten_bricks", "pencil_sweep_mxu", "pencil_sweep_mxu_kernel",
+__all__ = ["K8_RADII", "K8_SMEM_BUDGET", "MXU_LAYOUT_125", "MxuPlan",
+           "MxuStreamPlan", "flatten_bricks", "launch_mxu", "mxu_footprint",
+           "mxu_smem", "pencil_sweep_mxu", "pencil_sweep_mxu_kernel",
            "pencil_sweep_mxu_plain", "unflatten_bricks"]
 
-K8_THREADS = 256
-# shared memory per block: 76 KiB lets three blocks share one SM
-K8_SMEM_BUDGET = 76 * 1024
-K8_ROWS = 4                 # output rows per chunk (K8_R in the .cu)
-K8_RADII = (1, 2, 4, 8)     # k radii K8 is compiled for
-MAX_TILE_I = 128
+# K8's k-streaming blocks (csrc/mxu_stream.cuh) on the H100: the shared
+# memory one block may take (227 KB), output j rows of a warp's strip
+# (MX_UR), threads per block at most, and the SMs to fill
+K8_SMEM_BUDGET = 232448
+K8_STRIP = 8
+K8_GENERIC_W = 4            # generic W stage: elements a thread at once
+K8_MAX_THREADS = 512
+K8_RADII = (1, 2, 4, 8)     # coefficient k radii K8 takes
 K8_MAX_W = 24
 K8_MAX_DI = 17
 K8_MAX_TERMS = 128
+# the planner's costs in SM clocks: thread instructions issue at 128 a
+# clock with 16 warps or more resident (fewer leave the schedulers idle in
+# proportion), a level-0 float loaded costs as much as 8 (shared memory
+# and L2 bandwidth); a step's barrier and set-up; a block's start (its
+# brick table and the first planes' latency); registers a thread holds
+# (the compiled layout's body: 117, allocated in eights).  Fitted to K8's
+# footprints at 512^3 on the H100 (bench/k8_regimes.py --footprints): the
+# planner's pick within 5% of the best of each sweep.
+ISSUE_RATE, FULL_WARPS, LOAD_INSTR = 128, 16, 8
+STEP_CLOCKS, BLOCK_CLOCKS = 150, 1000
+SM_COUNT, SM_SMEM, SM_BLOCK_RESERVE, SM_THREADS = 132, 233472, 1024, 2048
+MAX_REGS = 120
+PLANE_SPAN = 1 << 20
+# the folded form K8 compiles in (LayoutMxu125 in csrc/mxu_stream.cuh):
+# mpi125pt's under ir.fold_linear, every profile's k taps dk -2..2
+# non-zero; the distinct V term lists (dj, profile) in order of first use
+# over the sorted di, and each di's list
+MXU_LAYOUT_125 = {
+    "nw": 6, "rk": 2, "jreach": (2, 2), "di": (-2, -1, 0, 1, 2),
+    "dtup": (0, 1, 2, 1, 0),
+    "tuples": (((-2, 0), (-1, 1), (0, 2), (1, 1), (2, 0)),
+               ((-2, 1), (-1, 3), (0, 4), (1, 3), (2, 1)),
+               ((-2, 2), (-1, 4), (0, 5), (1, 4), (2, 2))),
+}
 
 
 def flatten_bricks(view: torch.Tensor) -> torch.Tensor:
@@ -134,25 +163,67 @@ class MxuPlan:
         raise ValueError(f"kernel K8 takes a k radius of at most "
                          f"{K8_RADII[-1]}, got {need}")
 
-    def tile(self) -> tuple[int, int]:
-        """(i lanes per block, shared-memory bytes) for kernel K8: the
-        widest divisor of BI, at most :data:`MAX_TILE_I`, whose slab, W
-        buffer and row offsets fit :data:`K8_SMEM_BUDGET`."""
+    def folded(self) -> dict:
+        """K8's folded form as it takes it: the distinct V term lists
+        (tuples) in order of first use over the sorted di, each di's
+        tuple, and the lists' terms ``(dj, profile)`` in order."""
+        tuples: list = []
+        dtup = []
+        for _di, terms in self.vmap:
+            if terms not in tuples:
+                tuples.append(terms)
+            dtup.append(tuples.index(terms))
+        return {"nw": len(self.wdefs), "rk": self.rk(),
+                "jreach": (self.jlo, self.jhi),
+                "di": tuple(d for d, _t in self.vmap), "dtup": tuple(dtup),
+                "tuples": tuple(tuples)}
+
+    def layout(self) -> bool:
+        """The folded form equals the one K8 compiles in
+        (:data:`MXU_LAYOUT_125`), with every coefficient non-zero and the
+        k reach its radius: the entry point then runs that body."""
+        return (self.folded() == MXU_LAYOUT_125
+                and (self.klo, self.khi) == (2, 2)
+                and bool(np.all(self.coefficients() != 0)))
+
+    def stream(self) -> "MxuStreamPlan":
+        """Kernel K8's launch: the block footprint (k chunk, pencils, lane
+        chunks, lookahead) of least estimated cost over :data:`SM_COUNT`
+        SMs whose shared memory fits :data:`K8_SMEM_BUDGET`."""
+        terms = sum(len(t) for t in self.folded()["tuples"])
+        return _mxu_stream_plan(
+            self.bdims, self.ranges, (self.klo, self.jlo, self.ilo),
+            (self.khi, self.jhi, self.ihi), len(self.wdefs), self.n_ktaps(),
+            terms, len(self.vmap), self.layout())
+
+    def loads(self, sp: "MxuStreamPlan | None" = None) -> dict:
+        """Per output element at ``sp``'s footprint (the planner's by
+        default): ``level0``, the level-0 floats a block loads (its j, i
+        and k margins); ``shared``, the shared-memory loads of the compiled
+        layout's W and V stages (each strip row's k taps once, over the
+        warps' 32 lanes, 32 - ilo - ihi of them outputs), or of the generic
+        body's (each non-zero k tap per plane element, each V term per
+        output lane and di); ``per_row``, the layout's loads per V row."""
+        sp = self.stream() if sp is None else sp
         BK, BJ, BI = self.bdims
-        rk = self.rk()
-        jpe = BJ + self.jlo + self.jhi
-        sr = -(-BK // K8_ROWS) * K8_ROWS + 2 * rk
-        rows = sr + len(self.wdefs) * K8_ROWS
-        for ti in range(min(BI, MAX_TILE_I), 0, -1):
-            if BI % ti:
-                continue
-            floats = rows * jpe * (ti + self.ilo + self.ihi)
-            nbytes = 4 * ((floats + 1) & ~1) + 8 * sr * jpe
-            if nbytes <= K8_SMEM_BUDGET:
-                return ti, nbytes
-        raise ValueError(f"no i tile of BI={BI} fits {K8_SMEM_BUDGET} bytes "
-                         f"of shared memory with {len(self.wdefs)} "
-                         "k-profiles")
+        rk, rj = self.klo + self.khi, self.jlo + self.jhi
+        (K0, K1), (J0, J1) = self.ranges
+        nout = (K1 - K0) * BK * (J1 - J0) * BJ * BI
+        level0 = 0
+        lanes = 0
+        for (k0, k1), (j0, j1), (i0, i1) in sp.blocks():
+            level0 += (((k1 - k0) * BK + rk) * ((j1 - j0) * BJ + rj)
+                       * (sp.ti + 2 * sp.h))
+            nwarp = min(sp.nwc, -(-(i1 - i0) // sp.ow))
+            lanes += (k1 - k0) * BK * (j1 - j0) * BJ * 32 * nwarp
+        per_row = (K8_STRIP + rj) * (rk + 1) / K8_STRIP
+        if sp.layout:
+            shared = per_row * lanes / nout
+        else:
+            terms = sum(len(t) for _d, t in self.vmap)
+            shared = self.n_ktaps() * level0 / nout + terms * lanes / nout
+        return {"level0": level0 / nout, "shared": shared,
+                "per_row": per_row}
 
     def coefficients(self) -> np.ndarray:
         """K8's W stage: per k-profile its coefficient per dk in
@@ -176,6 +247,170 @@ class MxuPlan:
         k-tap, an add per V term and per di."""
         nterms = sum(len(t) for _di, t in self.vmap)
         return 2 * self.n_ktaps() + nterms + len(self.vmap)
+
+
+@dataclass(frozen=True)
+class MxuStreamPlan:
+    """K8's launch as :meth:`MxuPlan.stream` plans it.  The output brick
+    rows stream in chunks of ``kch`` rows, ``pj`` pencils per block, and
+    ``nwc`` lane chunks of ``ow`` output lanes each (``ti = nwc * ow`` i
+    lanes per block), one warp per (strip of :data:`K8_STRIP` j rows, lane
+    chunk); level 0 is loaded with an i margin of ``h`` lanes per side in
+    pieces of ``pw`` floats, ``d`` planes ahead.  ``layout``: the compiled
+    body runs (else the generic one, with its W buffers).  ``smem_bytes``
+    is the launch's dynamic shared memory."""
+
+    ranges: tuple
+    bdims: tuple
+    kch: int
+    pj: int
+    nwc: int
+    ow: int
+    h: int
+    pw: int
+    d: int
+    layout: bool
+    smem_bytes: int
+
+    @property
+    def ti(self) -> int:
+        return self.nwc * self.ow
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.nwc * -(-self.pj * self.bdims[1] // K8_STRIP)
+
+    @property
+    def nchunk(self) -> int:
+        (K0, K1), _ = self.ranges
+        return -(-(K1 - K0) // self.kch)
+
+    @property
+    def njg(self) -> int:
+        (J0, J1) = self.ranges[1]
+        return -(-(J1 - J0) // self.pj)
+
+    @property
+    def nit(self) -> int:
+        return -(-self.bdims[2] // self.ti)
+
+    @property
+    def nstream(self) -> int:
+        return self.nchunk * self.njg * self.nit
+
+    def blocks(self) -> list:
+        """Every block of the launch in grid order, decoded as the kernel
+        decodes it: ``((k0, k1), (j0, j1), (i0, i1))`` in brick rows,
+        pencils and i lanes (the last i tile cut at BI)."""
+        (K0, K1), (J0, J1) = self.ranges
+        BI = self.bdims[2]
+        out = []
+        for b in range(self.nstream):
+            it, b = b % self.nit, b // self.nit
+            jg, ch = b % self.njg, b // self.njg
+            k0, j0 = K0 + ch * self.kch, J0 + jg * self.pj
+            out.append(((k0, min(k0 + self.kch, K1)),
+                        (j0, min(j0 + self.pj, J1)),
+                        (it * self.ti, min((it + 1) * self.ti, BI))))
+        return out
+
+
+def mxu_smem(bdims, lo, hi, kch: int, pj: int, ti: int, h: int, d: int,
+             nw_buffers: int) -> int:
+    """Dynamic shared memory of one K8 block, laid out as
+    ``mxu_stream.cuh`` lays it out: the level-0 ring (``rk + 1 + d``
+    planes of ``pj * BJ + rj`` rows by ``ti + 2h`` floats), two W buffers
+    of ``nw_buffers`` planes (the generic body), the rows a strip may read
+    past them (and the generic W stage's last elements, ``K8_GENERIC_W -
+    1`` per thread), the count rounded up to even; then the brick table
+    (``(kch + 2) x (pj + 2)`` 64-bit offsets), an int pair per level-0 row
+    and two buffers of ``pj * BJ`` 64-bit output row offsets.  ``lo``,
+    ``hi``: the reach (k, folded j, i) per side."""
+    _BK, BJ, _BI = bdims
+    rk, rj = lo[0] + hi[0], lo[1] + hi[1]
+    rows, rw = pj * BJ + rj, ti + 2 * h
+    ps = rows * rw
+    n = (rk + 1 + d) * ps + 2 * nw_buffers * ps
+    n += max(K8_STRIP - pj * BJ, 0) * rw
+    if nw_buffers:
+        n += (K8_GENERIC_W - 1) * 32 * (ti // (32 - lo[2] - hi[2])) \
+            * -(-pj * BJ // K8_STRIP)
+    n = (n + 1) & ~1
+    return 4 * n + 8 * (kch + 2) * (pj + 2) + 8 * rows + 16 * pj * BJ
+
+
+@lru_cache(maxsize=256)
+def _mxu_stream_plan(bdims, ranges, lo, hi, nw: int, nktaps: int,
+                     nterms: int, ndi: int, layout: bool,
+                     budget: int = K8_SMEM_BUDGET) -> MxuStreamPlan:
+    BK, BJ, BI = bdims
+    (K0, K1), (J0, J1) = ranges
+    nrows, npen = K1 - K0, J1 - J0
+    rk, rj = lo[0] + hi[0], lo[1] + hi[1]
+    ow = 32 - lo[2] - hi[2]
+    if ow < 1:
+        raise ValueError(f"kernel K8 takes an i reach below 32 lanes, got "
+                         f"{lo[2]} + {hi[2]}")
+    pw = 4 if BI % 4 == 0 else 1
+    h = -(-max(lo[2], hi[2]) // pw) * pw
+    chunks = sorted(c for c in {-(-nrows // n) for n in range(1, nrows + 1)}
+                    if (c + 2) * BK + rk + 1 < PLANE_SPAN)
+    # thread instructions a warp's lane spends per step: per level-0 row of
+    # its strip the k taps' loads, the profiles' FMAs and the V adds (the
+    # compiled layout), per output row the i stage; the generic body also
+    # computes W over the plane into shared memory and reads V's terms back
+    per_row = (rk + 1 + nktaps + nterms if layout
+               else rk + 1 + nktaps + nw)
+    per_out = 2 * ndi + 2 + (0 if layout else nterms)
+    best = None
+    max_warps = K8_MAX_THREADS // 32
+    for pj in range(1, min(npen, max_warps) + 1):
+        nstrip = -(-pj * BJ // K8_STRIP)
+        for nwc in range(1, max_warps // nstrip + 1):
+            ti = nwc * ow
+            if ti % pw:
+                continue
+            nit = -(-BI // ti)
+            # warps of a strip live on average over the i tiles (a chunk
+            # wholly past BI skips its work)
+            live = sum(min(nwc, -(-(BI - it * ti) // ow))
+                       for it in range(nit)) / nit
+            threads = 32 * nstrip * nwc
+            rw = ti + 2 * h
+            for kch in chunks:
+                L = kch * BK
+                work = (L * nstrip * live * 32
+                        * ((K8_STRIP + rj) * per_row + K8_STRIP * per_out)
+                        + LOAD_INSTR * (pj * BJ + rj) * rw * (L + rk))
+                nblocks = -(-nrows // kch) * -(-npen // pj) * nit
+                for d in (2, 1):
+                    smem = mxu_smem(bdims, lo, hi, kch, pj, ti, h, d,
+                                    0 if layout else nw)
+                    if smem > budget:
+                        continue
+                    bps = min(SM_SMEM // (smem + SM_BLOCK_RESERVE),
+                              SM_THREADS // threads,
+                              65536 // (threads * MAX_REGS))
+                    if bps < 1:
+                        continue
+                    # an SM takes its share of the blocks, bps at a time:
+                    # their work shares its issue slots, and each round
+                    # pays one block's barriers and start
+                    per_sm = -(-nblocks // SM_COUNT)
+                    rounds = -(-per_sm // bps)
+                    rate = ISSUE_RATE * min(1.0, min(bps, per_sm) * nstrip
+                                            * live / FULL_WARPS)
+                    cost = (per_sm * work / rate
+                            + rounds * ((L + rk) * STEP_CLOCKS
+                                        + BLOCK_CLOCKS), -d, threads, kch)
+                    if best is None or cost < best[0]:
+                        best = (cost, (kch, pj, nwc, d, smem))
+    if best is None:
+        raise ValueError(f"no K8 k-streaming block of bricks {bdims} fits "
+                         f"{budget} bytes of shared memory")
+    kch, pj, nwc, d, smem = best[1]
+    return MxuStreamPlan(ranges, bdims, kch, pj, nwc, ow, h, pw, d, layout,
+                         smem)
 
 
 def pencil_sweep_mxu_plain(x: torch.Tensor, table: torch.Tensor,
@@ -230,8 +465,30 @@ def pencil_sweep_mxu_plain(x: torch.Tensor, table: torch.Tensor,
 
 def pencil_sweep_mxu_kernel(x: torch.Tensor, table: torch.Tensor,
                             plan: MxuPlan) -> torch.Tensor:
-    """Launch kernel K8 on CUDA tensors; returns a fresh output whose
-    unwritten bricks are undefined."""
+    """Launch kernel K8 on CUDA tensors, as :meth:`MxuPlan.stream` plans
+    it; returns a fresh output whose unwritten bricks are undefined."""
+    out = launch_mxu(x, table, plan, None)
+    pencil_sweep_mxu_kernel.launches += 1
+    return out
+
+
+def mxu_footprint(plan: MxuPlan, kch: int, pj: int, nwc: int,
+                  d: int) -> MxuStreamPlan:
+    """The launch of ``plan`` at another footprint (chunk, pencils, lane
+    chunks, lookahead), its shared memory counted from that footprint; for
+    measuring the planner's choice against its neighbours."""
+    sp = plan.stream()
+    lo, hi = (plan.klo, plan.jlo, plan.ilo), (plan.khi, plan.jhi, plan.ihi)
+    return MxuStreamPlan(sp.ranges, sp.bdims, kch, pj, nwc, sp.ow, sp.h,
+                         sp.pw, d, sp.layout,
+                         mxu_smem(plan.bdims, lo, hi, kch, pj, nwc * sp.ow,
+                                  sp.h, d, 0 if sp.layout
+                                  else len(plan.wdefs)))
+
+
+def launch_mxu(x: torch.Tensor, table: torch.Tensor, plan: MxuPlan,
+               sp: MxuStreamPlan | None) -> torch.Tensor:
+    """K8 at ``sp``'s footprint (``None``: the planner's)."""
     if x.device.type != "cuda" or table.device != x.device:
         raise ValueError("kernel K8 takes storage and table on one CUDA "
                          f"device, got {x.device} and {table.device}")
@@ -251,24 +508,29 @@ def pencil_sweep_mxu_kernel(x: torch.Tensor, table: torch.Tensor,
                          f"{K8_MAX_DI} distinct di and {K8_MAX_TERMS} V "
                          "terms")
     (K0, K1), (J0, J1) = plan.ranges
-    if K1 - K0 > 65535 or J1 - J0 > 65535:
-        raise ValueError("kernel K8 takes at most 65535 brick rows and "
-                         "pencils")
-    ti, smem = plan.tile()
+    sp = (plan.stream() if sp is None
+          else mxu_footprint(plan, sp.kch, sp.pj, sp.nwc, sp.d))
+    if sp.nstream > 2 ** 31 - 1:
+        raise ValueError("kernel K8 takes at most 2^31 - 1 blocks")
+    fold = plan.folded()
     coef = plan.coefficients()
-    di = np.asarray([d for d, _t in plan.vmap], np.int32)
-    tbeg = np.cumsum([0] + [len(t) for _d, t in plan.vmap]).astype(np.int32)
-    tdj = np.asarray([dj for _d, t in plan.vmap for dj, _w in t], np.int32)
-    tw = np.asarray([w for _d, t in plan.vmap for _dj, w in t], np.int32)
+    di = np.asarray(fold["di"], np.int32)
+    dtup = np.asarray(fold["dtup"], np.int32)
+    tbeg = np.cumsum([0] + [len(t) for t in fold["tuples"]]).astype(np.int32)
+    tdj = np.asarray([dj for t in fold["tuples"] for dj, _w in t], np.int32)
+    tw = np.asarray([w for t in fold["tuples"] for _dj, w in t], np.int32)
     out = torch.empty_like(x)
+    # 16-byte pieces need 16-byte aligned storage (a view may start anywhere)
+    pw = sp.pw if x.data_ptr() % 16 == 0 else 1
     err = _build.library().bt_pencil_sweep_mxu(
         x.data_ptr(), out.data_ptr(), table.data_ptr(), GK, GJ, BK, BJ, BI,
-        K0, K1, J0, J1, plan.jlo, plan.jhi, plan.ilo, plan.ihi, ti,
-        plan.rk(), len(plan.wdefs), coef.ctypes.data, len(di),
-        di.ctypes.data, tbeg.ctypes.data, tdj.ctypes.data, tw.ctypes.data,
-        smem, K8_THREADS, _build.stream_handle(x.device))
+        K0, K1, J0, J1, plan.klo, plan.khi, plan.jlo, plan.jhi, plan.ilo,
+        plan.ihi, sp.kch, sp.pj, sp.nwc, sp.h, pw, sp.d, plan.rk(),
+        len(plan.wdefs), coef.ctypes.data, len(di), di.ctypes.data,
+        dtup.ctypes.data, len(fold["tuples"]), tbeg.ctypes.data,
+        tdj.ctypes.data, tw.ctypes.data, sp.smem_bytes, sp.threads,
+        _build.stream_handle(x.device))
     _build.check(err, "pencil_sweep_mxu")
-    pencil_sweep_mxu_kernel.launches += 1
     return out
 
 

@@ -20,8 +20,8 @@ brick row ``r`` in ``y_range`` is computed from the slab of bricks
   and ``F * hi <= BY``; multi-input stencils and systems run at F = 1,
   take their inputs in ``fn.fields`` order and return one view per output.
 
-A CPU tensor takes the plain PyTorch version; a CUDA tensor launches K6 or
-raises.  K6 takes linear stencils: the host folds each output into a tap
+A CPU tensor takes the plain PyTorch version; a CUDA tensor launches K6
+(y-streaming blocks as :meth:`Plan2D.stream` plans them) or raises.  K6 takes linear stencils: the host folds each output into a tap
 table ``(field, dy, dx) -> coefficient`` by running the evaluator over
 linear forms.  ``lookahead`` and ``vmem_limit_bytes`` (TPU scheduling) are
 accepted and change nothing.
@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 import numbers
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -44,15 +45,40 @@ from .pencil_kernel import FEATURES_ITEM, _is_f32
 from .taps import as_ir
 
 __all__ = ["K6_RADII", "K6_SMEM_BUDGET", "K6_THREADS", "Plan2D",
-           "fold_linear_forms", "pencil_sweep_2d", "pencil_sweep_2d_kernel",
-           "pencil_sweep_2d_plain"]
+           "RowStreamPlan", "fold_linear_forms", "launch_2d",
+           "pencil_sweep_2d", "pencil_sweep_2d_kernel",
+           "pencil_sweep_2d_plain", "row_footprint", "row_smem"]
 
+# K6's y-streaming blocks (csrc/row_stream.cuh) on the H100: threads per
+# block, the shared memory one block may take (227 KB), rows a thread
+# computes at once (R6_UR), the widest x tile the planner tries
 K6_THREADS = 256
-# shared memory per block: 113 KiB lets two blocks share one SM
-K6_SMEM_BUDGET = 113 * 1024
-K6_ROWS = 8                 # output rows per thread strip (K6_R in the .cu)
+K6_SMEM_BUDGET = 232448
+K6_ROWS = 8
 K6_RADII = (1, 2, 4, 8)     # y radii K6 is compiled for
-MAX_TILE_X = 128
+MAX_TILE_X = 1024
+GENERIC_TILE_X = 128
+MAX_CHUNK = 32
+# the planner's costs in SM clocks (mxu_kernel's model): thread
+# instructions issue at 128 a clock with 16 warps or more resident (fewer
+# leave the schedulers idle in proportion), a level-0 float loaded costs as
+# much as 2, an item 120 besides its loads, FMAs and stores; a step's
+# latency (its barrier, the next group's arrival); a block's start.  Fitted
+# to K6's footprints at 16384^2 on the H100 (bench/k6_regimes.py
+# --footprints): the pick within 10% of the best of each sweep.
+ISSUE_RATE, FULL_WARPS, LOAD_INSTR, ITEM_INSTR = 128, 16, 2, 120
+STEP_CLOCKS, BLOCK_CLOCKS = 50, 1000
+SM_COUNT, SM_SMEM, SM_BLOCK_RESERVE, SM_THREADS = 132, 233472, 1024, 2048
+PLANE_SPAN = 1 << 20
+# registers a thread holds (ptxas: the box's compiled body 122, the generic
+# bodies 79 to 116), which bound the blocks an SM holds
+REGS_LAYOUT, REGS_GENERIC = 128, 112
+# the folded form K6 compiles in (LayoutBox9 in csrc/row_stream.cuh): the
+# 9-point box's groups, one field, dx in first-use order, three non-zero dy
+# coefficients each
+ROW_LAYOUT_BOX9 = {"fields": 1, "rad": 1, "dx": (0, 1, -1)}
+# row widths (x tile and margins) the box's body is compiled for
+ROW_WIDTHS = (128, 256, 512)
 K6_MAX_FIELDS = 8
 K6_MAX_OUT = 8
 K6_MAX_GROUPS = 64
@@ -191,28 +217,29 @@ class Plan2D:
         raise ValueError(f"kernel K6 takes a y radius of at most "
                          f"{K6_RADII[-1]}, got {need}")
 
-    def tile(self) -> tuple[int, int]:
-        """(x columns per block, shared-memory bytes) for kernel K6: the
-        widest power-of-two tile dividing X, at most :data:`MAX_TILE_X`,
-        whose level buffers and row offsets fit :data:`K6_SMEM_BUDGET`."""
-        BY, X = self.bdims
-        F, rad = self.fuse, self.rad()
-        ry = self.lo[0] + self.hi[0]
-        rx = self.lo[1] + self.hi[1]
-        h0, h1 = BY + F * ry, BY + (F - 1) * ry
-        nb0 = 1 if F > 1 else len(self.fields)
-        tx = MAX_TILE_X
-        while tx >= 1:
-            if X % tx == 0:
-                s0 = (h0 + 2 * rad + K6_ROWS) * (tx + F * rx)
-                s1 = ((h1 + 2 * rad + K6_ROWS) * (tx + (F - 1) * rx)
-                      if F > 1 else 0)
-                nbytes = 4 * ((nb0 * s0 + s1 + 1) & ~1) + 8 * h0
-                if nbytes <= K6_SMEM_BUDGET:
-                    return tx, nbytes
-            tx //= 2
-        raise ValueError(f"no x tile of X={X} fits {K6_SMEM_BUDGET} bytes "
-                         f"of shared memory at fuse={F}")
+    def layout(self) -> bool:
+        """The folded groups equal the ones K6 compiles in
+        (:data:`ROW_LAYOUT_BOX9`), every coefficient non-zero: the entry
+        point then runs that body at x tiles whose rows are
+        :data:`ROW_WIDTHS` floats."""
+        if self.taps is None or len(self.taps) != 1:
+            return False
+        gbeg, gfield, gdx, coef = self.groups()
+        return (len(self.fields) == ROW_LAYOUT_BOX9["fields"]
+                and self.rad() == ROW_LAYOUT_BOX9["rad"]
+                and tuple(gdx.tolist()) == ROW_LAYOUT_BOX9["dx"]
+                and not gfield.any() and bool(np.all(coef != 0)))
+
+    def stream(self) -> "RowStreamPlan":
+        """Kernel K6's launch: the block footprint (brick rows per chunk,
+        x tile, lookahead) of least estimated cost over :data:`SM_COUNT`
+        SMs whose shared memory fits :data:`K6_SMEM_BUDGET`."""
+        gbeg, _gf, _gdx, coef = self.groups()
+        nnz = int(np.count_nonzero(coef))
+        return _row_stream_plan(self.bdims, self.y_range, self.fuse,
+                                self.lo, self.hi, len(self.fields),
+                                len(self.taps), int(gbeg[-1]), nnz,
+                                self.rad(), self.layout())
 
     def groups(self):
         """K6's tap groups: per output, one group per distinct (field, dx)
@@ -239,10 +266,204 @@ class Plan2D:
                 np.asarray(gdx, np.int32),
                 np.asarray(coef, np.float32).reshape(-1))
 
+    def loads(self, sp: "RowStreamPlan | None" = None) -> dict:
+        """Per output element at ``sp``'s footprint (the planner's by
+        default): ``level0``, the level-0 floats a block loads (its
+        groups' rows over ``tx + 2h`` columns, every field); ``levels``,
+        the level evaluations it computes (levels 1 to F-1 over the
+        groups' rows and all columns in warps of 32, level F over its
+        groups' rows and the output columns); ``shared``, the shared loads
+        of one evaluation (each group's column of 8 + 2 rad rows for 8
+        rows)."""
+        sp = self.stream() if sp is None else sp
+        BY, X = self.bdims
+        F, ry = self.fuse, self.lo[0] + self.hi[0]
+        rw = sp.tx + 2 * sp.h
+        nout = (self.y_range[1] - self.y_range[0]) * BY * X
+        level0 = levels = 0
+        for (r0, r1), _x in sp.blocks():
+            L = (r1 - r0) * BY
+            ng = [-(-(L + (F - lv) * ry) // sp.g) for lv in range(F + 1)]
+            level0 += len(self.fields) * ng[0] * sp.g * rw
+            levels += sum(ng[lv] * sp.g * 32 * -(-rw // 32)
+                          for lv in range(1, F))
+            levels += ng[F] * sp.g * 32 * -(-sp.tx // 32)
+        gbeg, _gf, _gdx, _c = self.groups()
+        ngroups = int(gbeg[-1]) / len(self.taps)
+        return {"level0": level0 / nout, "levels": levels / nout,
+                "shared": (K6_ROWS + 2 * self.rad()) * ngroups / K6_ROWS}
+
     def flops_per_output(self) -> int:
         """f32 operations per output element per level of a linear
         stencil: one multiply and one add per folded tap."""
         return 2 * sum(len(t) for t in self.taps) // len(self.taps)
+
+
+@dataclass(frozen=True)
+class RowStreamPlan:
+    """K6's launch as :meth:`Plan2D.stream` plans it: the output brick
+    rows stream in chunks of ``ych`` rows, ``tx`` columns per block, in
+    groups of ``g`` rows; level 0 is loaded with an x margin of ``h``
+    columns per side in pieces of ``pw`` floats, ``d`` groups ahead.
+    The last x tile may end past X (its columns there are not stored).
+    ``smem_bytes`` is the launch's dynamic shared memory."""
+
+    y_range: tuple
+    bdims: tuple
+    ych: int
+    tx: int
+    h: int
+    pw: int
+    d: int
+    g: int
+    smem_bytes: int
+
+    @property
+    def nchunk(self) -> int:
+        Y0, Y1 = self.y_range
+        return -(-(Y1 - Y0) // self.ych)
+
+    @property
+    def nxt(self) -> int:
+        return -(-self.bdims[1] // self.tx)
+
+    @property
+    def nstream(self) -> int:
+        return self.nchunk * self.nxt
+
+    def blocks(self) -> list:
+        """Every block of the launch in grid order, decoded as the kernel
+        decodes it: ``((r0, r1), (x0, x1))`` in brick rows and columns
+        (the last x tile cut at X)."""
+        Y0, Y1 = self.y_range
+        X = self.bdims[1]
+        out = []
+        for b in range(self.nstream):
+            xt, ch = b % self.nxt, b // self.nxt
+            r0 = Y0 + ch * self.ych
+            out.append(((r0, min(r0 + self.ych, Y1)),
+                        (xt * self.tx, min((xt + 1) * self.tx, X))))
+        return out
+
+
+def row_groups(lo, hi) -> int:
+    """Rows per group: a multiple of :data:`K6_ROWS` no smaller than the
+    y reach (a group's reads reach that far into the next)."""
+    ry = lo[0] + hi[0]
+    return K6_ROWS * max(1, -(-ry // K6_ROWS))
+
+
+def row_smem(bdims, fuse: int, lo, hi, nf: int, ych: int, tx: int, h: int,
+             d: int, rad: int, g: int | None = None) -> int:
+    """Dynamic shared memory of one K6 block, laid out as
+    ``row_stream.cuh`` lays it out: per input field a level-0 ring of
+    ``d + 2`` groups, per intermediate level a ring of 3, every ring
+    ``3 rad`` rows more (padding before, the run past its last slot after)
+    of ``tx + 2h`` floats and ``h + 32`` floats before and after, the count
+    rounded up to even; then the brick table (the brick rows level 0
+    touches, 64-bit offsets) and two buffers of a group's output row
+    offsets.  ``g``: rows per group (:func:`row_groups` by default)."""
+    BY, _X = bdims
+    g = row_groups(lo, hi) if g is None else g
+    ry = lo[0] + hi[0]
+    rw, pad = tx + 2 * h, h + 32
+
+    def ring(slots):
+        return (3 * rad + slots * g) * rw + 2 * pad
+
+    n = (nf * ring(d + 2) + (fuse - 1) * ring(3) + 1) & ~1
+    nbricks = (ych * BY + fuse * ry + g - 1) // BY + 2
+    return 4 * n + 8 * nbricks + 16 * g
+
+
+@lru_cache(maxsize=256)
+def _row_stream_plan(bdims, y_range, fuse: int, lo, hi, nf: int, nout: int,
+                     ngroups: int, nnz: int, rad: int, layout: bool = False,
+                     budget: int = K6_SMEM_BUDGET) -> RowStreamPlan:
+    BY, X = bdims
+    Y0, Y1 = y_range
+    nrows, F = Y1 - Y0, fuse
+    ry = lo[0] + hi[0]
+    pw = 4 if X % 4 == 0 else 1
+    h = -(-F * max(lo[1], hi[1]) // pw) * pw
+    # chunks of at most MAX_CHUNK brick rows (longer ones were no faster
+    # in any regime, and slower on the wave system)
+    chunks = sorted(c for c in {-(-nrows // n) for n in range(1, nrows + 1)}
+                    if c <= MAX_CHUNK
+                    and (c + 2) * BY + F * ry + 16 * K6_ROWS < PLANE_SPAN)
+    # thread instructions of one item (8 rows of a column): per group its
+    # column's loads, the non-zero coefficients' FMAs over 8 rows, the
+    # stores, and some fixed work
+    per_item = ((K6_ROWS + 2 * rad) * ngroups + K6_ROWS * nnz
+                + K6_ROWS * nout + ITEM_INSTR)
+    # a load's address: an instruction of its own outside the box's compiled
+    # body
+    addr = (K6_ROWS + 2 * rad) * ngroups
+    nwarp = K6_THREADS // 32
+    best = None
+    # one group ahead, groups of 8 rows under the box's compiled body and
+    # of 16 under the generic one: the best of K6's footprints at 16384^2
+    # on the H100 in every regime (bench/k6_regimes.py --footprints)
+    for g in (row_groups(lo, hi) * (1 if layout else 2),):
+        # x tiles that divide X, and those whose rows are whole warps of
+        # 32 columns (tx + 2h a multiple of 32; the last tile cut at X)
+        # (the generic body's tiles at most GENERIC_TILE_X: its wider ones
+        # were slower on the wave system)
+        top = min(X, MAX_TILE_X if layout else GENERIC_TILE_X)
+        txs = {t for t in range(pw, top + 1, pw) if X % t == 0}
+        txs |= {t for t in range(64 - 2 * h, top + 1, 32)
+                if t > 0 and t % pw == 0}
+        for tx in sorted(txs):
+            rw = tx + 2 * h
+            # the box's compiled body (at its row widths) takes two
+            # 32-column chunks an item
+            nc = 2 if layout and rw in ROW_WIDTHS else 1
+            cmid, cout = -(-rw // (32 * nc)), -(-tx // (32 * nc))
+            for ych in chunks:
+                L = ych * BY
+                ngr = [-(-(L + (F - lv) * ry) // g) for lv in range(F + 1)]
+                lags = [0] + [1 if lv == 1 else 2 * lv - 1
+                              for lv in range(1, F + 1)]
+                nsteps = ngr[F] + lags[F]
+                # per step the items of its active levels, in whole rounds
+                # of the block's warps
+                rounds = 0
+                for st in range(nsteps):
+                    items = sum(g // K6_ROWS * (cmid if lv < F else cout)
+                                for lv in range(1, F + 1)
+                                if 0 <= st - lags[lv] < ngr[lv])
+                    rounds += -(-items // nwarp)
+                item = nc * per_item + (0 if nc == 2 else addr)
+                work = (rounds * nwarp * 32 * item
+                        + LOAD_INSTR * nf * ngr[0] * g * rw)
+                nblocks = -(-nrows // ych) * -(-X // tx)
+                for d in (1,):
+                    smem = row_smem(bdims, F, lo, hi, nf, ych, tx, h, d,
+                                    rad, g)
+                    if smem > budget:
+                        continue
+                    bps = min(SM_SMEM // (smem + SM_BLOCK_RESERVE),
+                              SM_THREADS // K6_THREADS,
+                              65536 // (K6_THREADS * (
+                                  REGS_LAYOUT if nc == 2
+                                  else REGS_GENERIC)))
+                    per_sm = -(-nblocks // SM_COUNT)
+                    rate = ISSUE_RATE * min(1.0, min(bps, per_sm) * nwarp
+                                            / FULL_WARPS)
+                    # a launch that leaves block slots of the card empty
+                    # comes last
+                    cost = (nblocks < SM_COUNT * bps,
+                            per_sm * work / rate
+                            + -(-per_sm // bps) * (nsteps * STEP_CLOCKS
+                                                   + BLOCK_CLOCKS),
+                            -d, tx, ych, g)
+                    if best is None or cost < best[0]:
+                        best = (cost, (ych, tx, d, g, smem))
+    if best is None:
+        raise ValueError(f"no K6 y-streaming block of bricks {bdims} fits "
+                         f"{budget} bytes of shared memory at fuse={F}")
+    ych, tx, d, g, smem = best[1]
+    return RowStreamPlan(y_range, bdims, ych, tx, h, pw, d, g, smem)
 
 
 def pencil_sweep_2d_plain(views: Sequence[torch.Tensor], table: torch.Tensor,
@@ -302,8 +523,30 @@ def pencil_sweep_2d_plain(views: Sequence[torch.Tensor], table: torch.Tensor,
 def pencil_sweep_2d_kernel(views: Sequence[torch.Tensor],
                            table: torch.Tensor,
                            plan: Plan2D) -> list[torch.Tensor]:
-    """Launch kernel K6 on CUDA tensors; returns one fresh storage per
-    output whose unwritten bricks are undefined."""
+    """Launch kernel K6 on CUDA tensors, as :meth:`Plan2D.stream` plans
+    it; returns one fresh storage per output whose unwritten bricks are
+    undefined."""
+    outs = launch_2d(views, table, plan, None)
+    pencil_sweep_2d_kernel.launches += 1
+    return outs
+
+
+def row_footprint(plan: Plan2D, ych: int, tx: int, d: int,
+                  g: int | None = None) -> RowStreamPlan:
+    """The launch of ``plan`` at another footprint (chunk, x tile,
+    lookahead, rows per group: the planner's by default), its shared
+    memory counted from that footprint."""
+    sp = plan.stream()
+    g = sp.g if g is None else g
+    return RowStreamPlan(sp.y_range, sp.bdims, ych, tx, sp.h, sp.pw, d, g,
+                         row_smem(plan.bdims, plan.fuse, plan.lo, plan.hi,
+                                  len(plan.fields), ych, tx, sp.h, d,
+                                  plan.rad(), g))
+
+
+def launch_2d(views: Sequence[torch.Tensor], table: torch.Tensor,
+              plan: Plan2D, sp: RowStreamPlan | None) -> list[torch.Tensor]:
+    """K6 at ``sp``'s footprint (``None``: the planner's)."""
     dev = views[0].device
     if dev.type != "cuda" or table.device != dev or any(
             v.device != dev for v in views):
@@ -328,24 +571,27 @@ def pencil_sweep_2d_kernel(views: Sequence[torch.Tensor],
     if len(views) > K6_MAX_FIELDS or len(plan.taps) > K6_MAX_OUT:
         raise ValueError(f"kernel K6 takes at most {K6_MAX_FIELDS} inputs "
                          f"and {K6_MAX_OUT} outputs")
-    Y0, Y1 = plan.y_range
-    if Y1 - Y0 > 65535:
-        raise ValueError("kernel K6 takes at most 65535 brick rows")
     rad = plan.rad()
-    tx, smem = plan.tile()
+    sp = (plan.stream() if sp is None
+          else row_footprint(plan, sp.ych, sp.tx, sp.d, sp.g))
+    if sp.nstream > 2 ** 31 - 1:
+        raise ValueError("kernel K6 takes at most 2^31 - 1 blocks")
+    Y0, Y1 = plan.y_range
     gbeg, gfield, gdx, coef = plan.groups()
     outs = [torch.empty_like(views[0]) for _ in plan.taps]
     ins = np.asarray([v.data_ptr() for v in views], np.int64)
     optr = np.asarray([o.data_ptr() for o in outs], np.int64)
     (ylo, xlo), (yhi, xhi) = plan.lo, plan.hi
+    # 16-byte pieces need 16-byte aligned storage (a view may start anywhere)
+    pw = sp.pw if all(v.data_ptr() % 16 == 0 for v in views) else 1
     err = _build.library().bt_pencil_sweep_2d(
         ins.ctypes.data, optr.ctypes.data, table.data_ptr(), len(views),
-        len(outs), GY, BY, X, Y0, Y1, plan.fuse, ylo, yhi, xlo, xhi, tx,
-        rad, len(gfield), gbeg.ctypes.data, gfield.ctypes.data,
-        gdx.ctypes.data, coef.ctypes.data, smem, K6_THREADS,
+        len(outs), GY, BY, X, Y0, Y1, plan.fuse, ylo, yhi, xlo, xhi,
+        sp.ych, sp.tx, sp.h, pw, sp.d, sp.g, rad, len(gfield),
+        gbeg.ctypes.data, gfield.ctypes.data, gdx.ctypes.data,
+        coef.ctypes.data, sp.smem_bytes, K6_THREADS,
         _build.stream_handle(dev))
     _build.check(err, "pencil_sweep_2d")
-    pencil_sweep_2d_kernel.launches += 1
     return outs
 
 

@@ -1,8 +1,7 @@
 // One float from device memory to shared memory without a register
 // (cp.async, Ampere and later): a thread issues all its copies, then waits
 // once with bt_copy_wait.  The host pass of a C++ compiler sees a plain
-// copy.  Included by the kernels that stage their tiles this way (K6, K7,
-// K8).
+// copy.  Included by the kernel that stages its tiles this way (K7).
 
 #pragma once
 

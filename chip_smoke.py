@@ -18,12 +18,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    sweep, w-streaming blocks) at a tiny and the full 4-D shape in four
    configurations, through its generic body, at both k edges of the
    table with fuse 1 to 3 and batched over three ranks, K6
-   (2-D whole-row sweep) at the full 16384^2 storage (9-point box at
-   fuse=1 and fuse=4, the wave system) and on a tiny radius-2 stencil
-   through the edge clamps, K8 (flat-pencil sweep) on tiny tables and at
-   512^3 mpi125pt on periodic and ghost-inclusive ranges, and against K1
-   at fuse=1 on the same table, K7 (dense padded-array stencil) on small
-   arrays and on one 147-row slab of the 1024^3 out-of-core pass, all at
+   (2-D whole-row sweep, y-streaming blocks) at the full 16384^2 storage
+   (9-point box at fuse=1, 2 and 4 through its compiled groups, the wave
+   system's two fields), on a tiny radius-2 stencil through both edge
+   clamps and on small bricks of a taller table at fuse=3, K8
+   (flat-pencil sweep, k-streaming blocks) on tiny tables (small bricks,
+   both edges, its compiled layout and its generic body) and at 512^3
+   (mpi125pt on periodic and ghost-inclusive ranges, mpi25pt through the
+   generic body), and against K1 at fuse=1 on the same table, K7 (dense
+   padded-array stencil) on small arrays and on one 147-row slab of the
+   1024^3 out-of-core pass, all at
    abs-or-rel 1e-5 (FMA contraction and summation order); K2 (exchange
    interval copies), K3 (storage copy), K5 (strong exchange stage, on
    every (stage, sign) of the full strong plan), K9 and K10 (the
@@ -805,12 +809,16 @@ def rand_cuda(shape, seed: int):
 def sweeps_2d():
     """K6's configurations: (name, fn, input shape), the first two at the
     2-D path's full storage (bench.py's 9-point box on the periodic
-    table), then the wave system there, then a radius-2 stencil through
-    the clamps of a non-periodic table."""
+    table), then the wave system there (two fields in, two out), then a
+    radius-2 stencil through the clamps of both edges of a non-periodic
+    table (ghost-inclusive), the box at fuse=2 over the full storage, and
+    small bricks of 4 rows on a taller table at fuse=3 (chunks of several
+    brick rows, groups across bricks)."""
     from bricklib_tpu_torch.codegen.pencil_kernel_2d import pencil_sweep_2d
 
     t, nb = table_2d(N2 // BY2 + 2, True)
     tiny, nbt = table_2d(6, False)
+    tall, nbl = table_2d(40, False)
     box9, wave, asym9 = (stencil_2d(n) for n in ("box9", "wave", "asym9"))
     full = (nb, BY2, N2)
     return [
@@ -826,6 +834,11 @@ def sweeps_2d():
         ("radius-2 6x(8,256) y_range=(0,6) fuse=2",
          pencil_sweep_2d(asym9, tiny, (8, 256), nbt, y_range=(0, 6),
                          fuse=2), (nbt, 8, 256)),
+        ("box9 16384^2 fuse=2", pencil_sweep_2d(box9, t, (BY2, N2), nb,
+                                                fuse=2), full),
+        ("box9 40x(4,96) y_range=(0,40) fuse=3",
+         pencil_sweep_2d(box9, tall, (4, 96), nbl, y_range=(0, 40),
+                         fuse=3), (nbl, 4, 96)),
     ]
 
 
@@ -845,12 +858,13 @@ def phase_kernels_2d(err: dict) -> None:
             xs, torch.from_numpy(fn.plan.table).cuda(), fn.plan)
         torch.cuda.synchronize()
         w = torch.from_numpy(fn.plan.written_bricks()).cuda()
-        tx, smem = fn.plan.tile()
+        sp = fn.plan.stream()
         for o, (g, wv) in enumerate(zip(got, want)):
             ok, e = close(g[w], wv[w], K1_TOL)
             err["K6"] = max(err.get("K6", 0.0), e)
-            print(f"[3 K6 {name} output {o} tile {tx} cols {smem} B] max abs "
-                  f"err {e:.3e} (abs-or-rel {K1_TOL:g}) "
+            print(f"[3 K6 {name} output {o}: chunks of {sp.ych} brick rows, "
+                  f"{sp.tx} cols, {sp.g}-row groups, {sp.smem_bytes} B] max "
+                  f"abs err {e:.3e} (abs-or-rel {K1_TOL:g}) "
                   f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail(f"K6 {name} output {o} disagrees with its plain version")
@@ -859,10 +873,13 @@ def phase_kernels_2d(err: dict) -> None:
 
 
 def phase_kernels_mxu(err: dict) -> None:
-    """K8 against its plain version on tiny tables of distinct bricks and
-    at 512^3 mpi125pt (the 125-point leg's periodic sweep and a
-    ghost-inclusive sweep on the exchange table), on the bricks it writes;
-    then against K1 at fuse=1 on the periodic table."""
+    """K8 against its plain version on tiny tables of distinct bricks
+    (small bricks, both table edges; the compiled layout and the generic
+    body, also mpi125pt with a zero coefficient, which takes the generic
+    body) and at 512^3 (the 125-point leg's periodic sweep, a
+    ghost-inclusive sweep on the exchange table, and mpi25pt periodic
+    through the generic body), on the bricks it writes; then against K1 at
+    fuse=1 on the periodic table."""
     import numpy as np
     import torch
 
@@ -877,11 +894,17 @@ def phase_kernels_mxu(err: dict) -> None:
     grid = np.asarray(grid)
     cases = []
     for name, bd in (("s7pt", (2, 2, 8)), ("mpi125pt", (4, 4, 8)),
-                     ("mpi25pt", (4, 8, 8)), ("mpi125pt", (8, 8, 256))):
+                     ("mpi25pt", (4, 8, 8)), ("mpi125pt", (8, 8, 256)),
+                     ("s27pt", (5, 3, 24))):
         for kw in ({}, {"k_range": (0, 5), "j_range": (0, 4)}):
             cases.append((f"{name} {bd} {'ghost' if kw else 'skip'}",
                           pencil_sweep_mxu(name, grid, bd, info.nbricks,
                                            params, **kw), info.nbricks))
+    cases.append(("mpi125pt (8, 8, 64) MPI_C9=0 ghost",
+                  pencil_sweep_mxu("mpi125pt", grid, (8, 8, 64),
+                                   info.nbricks, dict(params, MPI_C9=0.0),
+                                   k_range=(0, 5), j_range=(0, 4)),
+                  info.nbricks))
     dec = decomposition(N_BIG)
     GK, GJ = dec.grid.shape[:2]
     periodic = pencil_sweep_mxu("mpi125pt", dec.periodic_grid((0, 1, 2)),
@@ -890,6 +913,10 @@ def phase_kernels_mxu(err: dict) -> None:
               ("512^3 mpi125pt ghost-inclusive",
                pencil_sweep_mxu("mpi125pt", dec.grid, dec.bdims, dec.nbricks,
                                 params, k_range=(0, GK), j_range=(0, GJ)),
+               dec.nbricks),
+              ("512^3 mpi25pt periodic skip",
+               pencil_sweep_mxu("mpi25pt", dec.periodic_grid((0, 1, 2)),
+                                dec.bdims, dec.nbricks, params),
                dec.nbricks)]
     for name, fn, nb in cases:
         bk, bj, bi = fn.plan.bdims
@@ -901,9 +928,11 @@ def phase_kernels_mxu(err: dict) -> None:
         w = torch.from_numpy(fn.plan.written_bricks()).cuda()
         ok, e = close(got[w], want[w], K1_TOL)
         err["K8"] = max(err.get("K8", 0.0), e)
-        ti, smem = fn.plan.tile()
-        print(f"[3 K8 {name} tile {ti} lanes {smem} B] max abs err {e:.3e} "
-              f"(abs-or-rel {K1_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+        sp = fn.plan.stream()
+        print(f"[3 K8 {name}, {'layout' if sp.layout else 'generic'} body, "
+              f"chunks of {sp.kch} brick rows, {sp.pj} pencils, {sp.ti} "
+              f"lanes, {sp.smem_bytes} B] max abs err {e:.3e} (abs-or-rel "
+              f"{K1_TOL:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"K8 {name} disagrees with its plain version")
         del x, got, want

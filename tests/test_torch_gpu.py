@@ -8,7 +8,9 @@ The file imports no JAX, so it also runs on a machine without JAX, where
 
 K1 (also batched over a subdomain stack), K4 (also batched over the ranks
 of a card, at the table's k edges, through its generic body and at other
-footprints), K6 and K8 are compared on the bricks they write, K7 on the
+footprints), K6 and K8 (also at other footprints of their streaming
+blocks, K8 through its compiled layout and its generic body) are compared
+on the bricks they write, K7 on the
 whole padded array, at abs-or-rel 1e-5 (FMA contraction and summation
 order); K2, K3, K5, K9 and K10 only copy, so they must be bit-exact.  The
 remote-copy kernels run with four (K9) and two (K10) ranks on one card,
@@ -31,7 +33,9 @@ from bricklib_tpu_torch.codegen.fused_exchange import (
 from bricklib_tpu_torch.codegen.dense_kernel import (dense_stencil,
                                                      dense_stencil_kernel,
                                                      dense_stencil_plain)
-from bricklib_tpu_torch.codegen.mxu_kernel import (pencil_sweep_mxu,
+from bricklib_tpu_torch.codegen.mxu_kernel import (launch_mxu,
+                                                   mxu_footprint,
+                                                   pencil_sweep_mxu,
                                                    pencil_sweep_mxu_kernel,
                                                    pencil_sweep_mxu_plain)
 from bricklib_tpu_torch.codegen.pencil_kernel import (_launch_stream,
@@ -39,7 +43,8 @@ from bricklib_tpu_torch.codegen.pencil_kernel import (_launch_stream,
                                                       pencil_sweep_kernel,
                                                       pencil_sweep_plain)
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
-    pencil_sweep_2d, pencil_sweep_2d_kernel, pencil_sweep_2d_plain)
+    launch_2d, pencil_sweep_2d, pencil_sweep_2d_kernel, pencil_sweep_2d_plain,
+    row_footprint)
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
     launch_4d, pencil_sweep_4d, pencil_sweep_4d_kernel, stream4_footprint,
     stream_plan_4d)
@@ -360,6 +365,38 @@ def test_sweep_2d_kernel_matches_plain(cuda, name, fuse, by, X, periodic,
         assert compare_arrays(g.cpu().numpy()[w], wv.cpu().numpy()[w], 1e-5)
 
 
+@pytest.mark.parametrize("name,fuse,by,X,gy,y_range", [
+    ("box9", 4, 32, 512, 10, None), ("box9", 3, 4, 256, 40, (0, 40)),
+    ("asym9", 2, 8, 128, 9, (0, 9)), ("wave", 1, 8, 128, 12, (0, 12))])
+@pytest.mark.parametrize("fp", [(1, 32, 1, 8), (3, 64, 2, 8), (2, 32, 2, 16),
+                                (8, 128, 1, 16), (2, 120, 1, 8),
+                                (1, 248, 1, 16)])
+def test_sweep_2d_kernel_footprints_match_plain(cuda, name, fuse, by, X, gy,
+                                                y_range, fp):
+    """K6's y-streaming body at other footprints (brick rows per chunk, x
+    tile, lookahead, rows per group): chunks of several brick rows, groups
+    across bricks, both table edges (ghost-inclusive y_range), the wave
+    system's two level-0 rings, x tiles that end past X with the box's row
+    widths compiled in (tiles 120 and 248: rows of 128 and 256); each
+    equal to the plain version, and every footprint to every other bit for
+    bit."""
+    ych, tx, d, g = fp
+    table = _table_2d(gy, y_range is None)
+    fn = pencil_sweep_2d(BUILDERS[name](st), table, (by, X), gy, PARAMS,
+                         y_range=y_range, fuse=fuse)
+    plan = fn.plan
+    xs = [torch.rand((gy, by, X), generator=torch.Generator().manual_seed(
+        30 + f)).to(cuda) for f in range(len(plan.fields))]
+    tab = torch.from_numpy(plan.table).to(cuda)
+    got = launch_2d(xs, tab, plan, row_footprint(plan, ych, tx, d, g))
+    ref = launch_2d(xs, tab, plan, None)
+    want = pencil_sweep_2d_plain(xs, tab, plan)
+    w = plan.written_bricks()
+    for a, r, b in zip(got, ref, want):
+        assert torch.equal(a[w], r[w])
+        assert compare_arrays(a.cpu().numpy()[w], b.cpu().numpy()[w], 1e-5)
+
+
 def test_sweep_2d_kernel_refuses_nonlinear_stencils(cuda):
     fn = pencil_sweep_2d(BUILDERS["nonlin"](st), np.arange(6), (4, 16), 6)
     with pytest.raises(NotImplementedError, match="nonlinear"):
@@ -399,6 +436,39 @@ def test_mxu_kernel_matches_plain(cuda, name, bd, ranges):
     want = pencil_sweep_mxu_plain(
         x, torch.from_numpy(fn.plan.table).to(cuda), fn.plan)
     w = fn.plan.written_bricks()
+    assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
+
+
+@pytest.mark.parametrize("name,params", [
+    ("mpi125pt", {}), ("mpi125pt", {"MPI_C9": 0.0}), ("mpi25pt", {}),
+    ("s7pt", {})])
+@pytest.mark.parametrize("fp", [(1, 1, 1, 2), (2, 3, 2, 1), (4, 2, 1, 2),
+                                (3, 2, 3, 2)])
+def test_mxu_kernel_footprints_match_plain(cuda, name, params, fp):
+    """K8's k-streaming body at other footprints (brick rows per chunk,
+    pencils, lane chunks, lookahead) over every brick of a 64^3 exchange
+    table (both table edges clamp): the compiled layout (mpi125pt), the
+    generic body (a zero coefficient, other folded forms); each equal to
+    the plain version, and to the planner's footprint bit for bit."""
+    dec = BrickDecomp(dims=(64, 64, 64), ghost_depth=(8, 8, 0),
+                      bdims=(8, 8, 64)).initialize(skinlist_by_name("good", 3))
+    GK, GJ = dec.grid.shape[:2]
+    fn = pencil_sweep_mxu(name, dec.grid, dec.bdims, dec.nbricks,
+                          dict(bench_params(), **params), k_range=(0, GK),
+                          j_range=(0, GJ))
+    plan = fn.plan
+    assert plan.layout() == (name == "mpi125pt" and not params)
+    x = torch.from_numpy(random_array((dec.nbricks, 8, 8 * 64), np.float32,
+                                      11)).to(cuda)
+    tab = torch.from_numpy(plan.table).to(cuda)
+    kch, pj, nwc, d = fp
+    # the lane chunks' output lanes a multiple of the 16-byte pieces
+    nwc *= 1 + (nwc * plan.stream().ow) % 4 // 2
+    got = launch_mxu(x, tab, plan, mxu_footprint(plan, kch, pj, nwc, d))
+    ref = launch_mxu(x, tab, plan, None)
+    want = pencil_sweep_mxu_plain(x, tab, plan)
+    w = plan.written_bricks()
+    assert torch.equal(got[w], ref[w])
     assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
 
 

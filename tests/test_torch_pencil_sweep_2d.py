@@ -128,13 +128,20 @@ def test_tap_folder_refuses_nonlinear_stencils():
 
 def test_k6_plan_at_the_full_2d_shape():
     """bench.py's 2-D leg: 16384^2 as (32, 16384) bricks, fuse 4.  K6
-    takes 128-column tiles and folds the box into three (field, dx)
-    groups of three dy coefficients each."""
+    streams chunks of brick rows in groups of 8 or 16 rows through x tiles
+    that divide the width or whose rows (the tile and a margin of 4
+    columns, fuse x radius) are whole warps of 32, in 227 KB of shared
+    memory and enough blocks to fill the card's 132 SMs, runs the box's
+    compiled groups and folds the box into three (field, dx) groups of
+    three dy coefficients each."""
     table, nb = _table("periodic", 16384 // 32 + 2)
     assert nb == 514
     fn = pencil_sweep_2d(box9(port_st), table, (32, 16384), nb, fuse=4)
-    tx, smem = fn.plan.tile()
-    assert tx == 128 and smem <= K6_SMEM_BUDGET
+    sp = fn.plan.stream()
+    assert 16384 % sp.tx == 0 or (sp.tx + 2 * sp.h) % 32 == 0
+    assert sp.smem_bytes <= K6_SMEM_BUDGET and fn.plan.layout()
+    assert sp.g in (8, 16) and (sp.h, sp.pw) == (4, 4)
+    assert sp.nstream >= 132 and sp.nchunk * sp.ych >= 512
     gbeg, gfield, gdx, coef = fn.plan.groups()
     assert list(gbeg) == [0, 3] and sorted(gdx) == [-1, 0, 1]
     assert coef.shape == (9,) and abs(coef.sum() - 0.88) < 1e-6

@@ -287,7 +287,8 @@ def test_mxu_describe_agrees_with_the_reference():
     (info,) = b["kernels"]
     assert info["kernel"].startswith("K8")
     assert info["w_profiles"] == 6 and info["taps"] == [30]
-    assert info["smem_bytes"] > 0 and 32 % info["tile_i"] == 0
+    # K8's i tile is whole warps of 28 output lanes (32 less the i reach)
+    assert info["smem_bytes"] > 0 and info["tile_i"] % 28 == 0
 
 
 def test_reference_mxu_checkpoint_loads_into_the_port(tmp_path):
