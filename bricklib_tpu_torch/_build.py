@@ -47,8 +47,8 @@ SIGNATURES = {
     "bt_pencil_sweep_mxu": [_VOID, _VOID, _VOID] + [_INT] * 23
                            + [_VOID, _INT, _VOID, _VOID, _INT]
                            + [_VOID] * 3 + [_INT, _INT, _VOID],
-    "bt_pencil_sweep_nd": [_VOID, _INT, _VOID, _VOID, _INT] + [_VOID] * 5
-                          + [_INT, _INT, _VOID],
+    "bt_pencil_sweep_nd": [_VOID, _INT] + [_VOID] * 4 + [_INT, _VOID]
+                          + [_INT] * 3 + [_VOID],
     "bt_dense_stencil": [_VOID, _VOID] + [_INT] * 14 + [_VOID] * 5
                         + [_INT, _INT, _VOID],
     "bt_copy_intervals": [_VOID, _VOID, _INT, _I64, _VOID],
@@ -57,7 +57,7 @@ SIGNATURES = {
     "bt_remote_copy": [_VOID, _INT, _VOID, _INT, _I64, _VOID],
     "bt_strong_remote_copy": [_VOID, _INT, _VOID, _INT, _I64, _VOID],
     "bt_fused_exchange": [_VOID, _VOID, _INT, _INT, _VOID, _I64, _VOID, _I64,
-                          _VOID, _VOID, _I64, _VOID, _VOID] + [_INT] * 14
+                          _VOID, _VOID, _I64, _VOID, _VOID] + [_INT] * 26
                          + [_VOID, _VOID, _INT, _INT, _VOID],
 }
 # the peer-access entry points (no stream): device, peer[, int* ok]

@@ -9,13 +9,16 @@ fresh output, ghost-inclusive on the exchanged axes by default.  The
 result equals :func:`~..comm.exchange.put_exchange` followed by the same
 :func:`~.pencil_kernel.pencil_sweep`, bit for bit: the plain version
 (:func:`fusedx_plain`) is exactly that composition, and kernel K11
-(``csrc/fused_exchange.cu``) runs K1's block body.
+(``csrc/fused_exchange.cu``) runs K1's k-streaming block body on the
+blocks of the stream plan K1 itself runs for the card's ranks
+(:meth:`~.pencil_kernel.SweepPlan.stream` of the batched sweep).
 
 On a mesh, K11 is one launch per card and step carrying every rank the
-card holds.  Its blocks take tickets in start order: first the copy
-chunks, then the output tiles that read no copied brick, then those that
-do, each of which waits until the arrival counters of the gate groups it
-reads (per receiving rank: ``klo``, ``khi``, ``j``) reach their targets.
+card holds, one block per stream block (those that read no copied brick
+first).  Every block first draws copy chunks from the card's pool until
+it is empty; then each block that reads a copied brick waits until the
+arrival counters of the gate groups it reads (per receiving rank:
+``klo``, ``khi``, ``j``) reach their targets.
 The host-side gating plan (:class:`CardPlan`, ``fn.cards``) is what the
 tests read.  Across cards the launches are ordered by CUDA events
 (:func:`~..comm.exchange.event_plan`).
@@ -41,8 +44,9 @@ from ..comm.exchange import (MAX_CARDS, _one_rank_shape, _wait, check_rows,
                              put_plan_copies)
 from ..comm.mesh import Mesh, check_state, domain_axis_names
 from ..core import not_ported
-from .pencil_kernel import (FEATURES_ITEM, KERNEL_THREADS, SweepPlan,
-                            _is_f32, pencil_sweep, pencil_sweep_plain)
+from .pencil_kernel import (FEATURES_ITEM, STREAM_THREADS, StreamPlan,
+                            SweepPlan, _is_f32, pencil_sweep,
+                            pencil_sweep_plain)
 from .taps import as_ir
 
 GROUPS = ("klo", "khi", "j")
@@ -55,19 +59,22 @@ class CardPlan:
     """What K11 runs on one card.  ``rows``: the copy chunks the card
     launches, ``(dst card, dst offset, src card, src offset, length,
     counter)`` in 16-byte vectors over the cards' flat storages, counter
-    ``dst slot * 3 + group``; ``items``: the output tiles in ticket order,
-    ``(slot, brick row, pencil, i tile, gate bits)`` (bit ``g`` of
-    :data:`GROUPS`), the tiles that read no copied brick first; ``expect``:
-    per counter of this card's ranks, the chunks that land there from
-    every card."""
+    ``dst slot * 3 + group``; ``stream``: K1's stream plan of the batched
+    ghost-inclusive sweep over the card's ranks; ``items``: its blocks in
+    launch order (block ``w`` runs item ``w``), ``(slot, stream block of
+    one rank, gate bits)`` (bit ``g`` of :data:`GROUPS`), the blocks that
+    read no copied brick first;
+    ``expect``: per counter of this card's ranks, the chunks that land
+    there from every card."""
 
     rows: list
+    stream: StreamPlan
     items: np.ndarray
     expect: np.ndarray
 
 
 def _read_bricks(table: np.ndarray, plan: SweepPlan, kout: int, jout: int):
-    """The table cells an output tile at (kout, jout) reads at level 0
+    """The table cells an output brick at (kout, jout) reads at level 0
     (fuse 1: its neighbours within the radius, clamped at the edges)."""
     BK, BJ, _BI = plan.bdims
     GK, GJ = table.shape
@@ -80,7 +87,7 @@ def _read_bricks(table: np.ndarray, plan: SweepPlan, kout: int, jout: int):
 
 
 def gate_bits(plan: SweepPlan, put) -> np.ndarray:
-    """Per output tile ``(k, j)`` of the sweep's ranges, the gate groups
+    """Per output brick ``(k, j)`` of the sweep's ranges, the gate groups
     whose ghost rows it reads, as bits of :data:`GROUPS` (every rank
     receives every entry of the PUT plan ``put``)."""
     group_of = {}
@@ -95,6 +102,21 @@ def gate_bits(plan: SweepPlan, put) -> np.ndarray:
                 if b in group_of:
                     bits[k - K0, j - J0] |= 1 << group_of[b]
     return bits
+
+
+def block_gates(sp: StreamPlan, bits: np.ndarray) -> np.ndarray:
+    """Per stream block of one rank (the first ``sp.nchunk * sp.njg *
+    sp.nit`` of :meth:`~.pencil_kernel.StreamPlan.blocks`), the union of
+    the :func:`gate_bits` of the output bricks it writes: its chunk of
+    brick rows, its pencils (its i tile reads whole pencils)."""
+    (K0, _), (J0, _) = sp.ranges
+    nper = sp.nchunk * sp.njg * sp.nit
+    gates = np.zeros(nper, np.int32)
+    for b, (_sub, (k0, k1), (j0, j1), _i, _e) in enumerate(
+            sp.blocks()[:nper]):
+        gates[b] = np.bitwise_or.reduce(
+            bits[k0 - K0:k1 - K0, j0 - J0:j1 - J0], axis=None)
+    return gates
 
 
 def card_plans(mesh: Mesh, copies, plan: SweepPlan, bits: np.ndarray,
@@ -116,17 +138,17 @@ def card_plans(mesh: Mesh, copies, plan: SweepPlan, bits: np.ndarray,
             rows[cq].append((c, dst + off, cq, src + off,
                              min(CHUNK_VECS, n - off), counter))
             expect[c][counter] += 1
-    (K0, K1), (J0, J1) = plan.ranges
-    ntile = plan.bdims[2] // plan.tile()[0]
     out = []
     for c in range(ncards):
+        p = len(mesh.ranks_on(c))
+        sp = dataclasses.replace(plan, batch=p,
+                                 batch_stride=nbricks).stream()
+        gates = block_gates(sp, bits)
         items = np.asarray(
-            [(s, k, j, t, bits[k - K0, j - J0])
-             for s in range(len(mesh.ranks_on(c)))
-             for k in range(K0, K1) for j in range(J0, J1)
-             for t in range(ntile)], np.int32).reshape(-1, 5)
-        order = np.argsort(items[:, 4] != 0, kind="stable")
-        out.append(CardPlan(rows[c], np.ascontiguousarray(items[order]),
+            [(s, b, g) for s in range(p) for b, g in enumerate(gates)],
+            np.int32).reshape(-1, 3)
+        order = np.argsort(items[:, 2] != 0, kind="stable")
+        out.append(CardPlan(rows[c], sp, np.ascontiguousarray(items[order]),
                             expect[c]))
     return out
 
@@ -175,7 +197,8 @@ def pencil_sweep_fusedx_kernel(flats, card: int, outs, cp: CardPlan,
     if x.dtype != torch.float32 or tuple(x.shape[1:]) != (BK, BJ, BI):
         raise ValueError(f"storage must be float32 [nb, {BK}, {BJ}, {BI}], "
                          f"got {x.dtype} {tuple(x.shape)}")
-    ti, smem = plan.tile()
+    sp = cp.stream
+    (K0, K1), (J0, J1) = plan.ranges
     (klo, jlo, ilo), (khi, jhi, ihi) = plan.lo, plan.hi
     offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
     coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
@@ -183,13 +206,17 @@ def pencil_sweep_fusedx_kernel(flats, card: int, outs, cp: CardPlan,
     ctrs = (ctypes.c_void_p * len(flats))(
         *[d["arrive"].data_ptr() for d in dev])
     d = dev[card]
+    # 16-byte pieces need 16-byte aligned storage, as in K1
+    pw = sp.pw if x.data_ptr() % 16 == 0 else 1
     err = _build.library().bt_fused_exchange(
         bases, ctrs, len(flats), card, d["rows"].data_ptr(), len(cp.rows),
         d["items"].data_ptr(), len(cp.items), d["expect"].data_ptr(),
-        d["ticket"].data_ptr(), epoch, outs[card].data_ptr(),
-        d["table"].data_ptr(), GK, GJ, BK, BJ, BI, klo, khi, jlo, jhi, ilo,
-        ihi, ti, nbricks, len(coeffs), offs.ctypes.data, coeffs.ctypes.data,
-        smem, KERNEL_THREADS, _build.stream_handle(x.device))
+        d["pool"].data_ptr(), epoch, outs[card].data_ptr(),
+        d["table"].data_ptr(), GK, GJ, BK, BJ, BI, K0, K1, J0, J1, klo, khi,
+        jlo, jhi, ilo, ihi, sp.batch, nbricks, sp.kch, sp.pj, sp.ti, sp.h,
+        pw, sp.d, int(sp.edge_lo), int(sp.edge_hi), len(coeffs),
+        offs.ctypes.data, coeffs.ctypes.data, sp.smem_bytes, STREAM_THREADS,
+        _build.stream_handle(x.device))
     _build.check(err, "pencil_sweep_fusedx")
     pencil_sweep_fusedx_kernel.launches += 1
 
@@ -198,9 +225,10 @@ pencil_sweep_fusedx_kernel.launches = 0
 
 
 def _device_tables(cards, flats, plan: SweepPlan) -> list[dict]:
-    """Per card: its copy chunks, tiles, expected counts and grid table on
-    the card, a zeroed ticket counter and zeroed arrival counters (made
-    once; the kernel never resets them, the epoch moves the targets)."""
+    """Per card: its copy chunks, stream blocks, expected counts and grid
+    table on the card, a zeroed counter of the chunks drawn from its pool
+    and zeroed arrival counters (made once; the kernel never resets them,
+    the epoch moves the targets)."""
     out = []
     for cp, x in zip(cards, flats):
         dv = x.device
@@ -214,7 +242,7 @@ def _device_tables(cards, flats, plan: SweepPlan) -> list[dict]:
             "items": put(cp.items, torch.int32),
             "expect": put(cp.expect, torch.int64),
             "table": put(plan.table, torch.int32),
-            "ticket": torch.zeros(1, dtype=torch.int64, device=dv),
+            "pool": torch.zeros(1, dtype=torch.int64, device=dv),
             "arrive": torch.zeros(len(cp.expect), dtype=torch.int64,
                                   device=dv)})
     return out

@@ -46,13 +46,9 @@ from .ir import StencilIR
 from .taps import TapTable, as_ir, params_from_reference
 
 FEATURES_ITEM = "remaining pencil_sweep features"
-# sweep_block (csrc/pencil_sweep.cuh, kernel K11's body): threads and
-# shared memory per block (76 KiB lets three blocks share one SM)
-KERNEL_THREADS = 256
-SMEM_BUDGET = 76 * 1024
-MAX_TILE_I = 128
-# K1's k-streaming blocks (csrc/pencil_stream.cuh) on the H100: threads per
-# block, the shared memory one block may take (227 KB) and one SM holds
+# K1's k-streaming blocks (csrc/pencil_stream.cuh; K11's sweep blocks
+# too) on the H100: threads per block, the shared memory one block may take
+# (227 KB) and one SM holds
 # (228 KB, 1 KB of it reserved per resident block), and the SMs to fill
 STREAM_THREADS = 512
 # output rows a thread computes at once (BT_UR in pencil_stream.cuh)
@@ -323,28 +319,6 @@ class SweepPlan:
         return np.unique(np.concatenate(
             [ids.ravel() + s * self.batch_stride
              for s in range(self.batch)]))
-
-    def tile(self) -> tuple[int, int]:
-        """(i lanes per block, shared-memory bytes) for kernel K11's block
-        body (``sweep_block``, K1's first design): the
-        widest power-of-two i tile dividing BI whose level-0 and level-1
-        tiles and level-0 row offsets fit :data:`SMEM_BUDGET`."""
-        BK, BJ, BI = self.bdims
-        F = self.fuse
-        rk, rj, ri = (l + h for l, h in zip(self.lo, self.hi))
-        rows0 = (BK + F * rk) * (BJ + F * rj)
-        ti = MAX_TILE_I
-        while ti >= 1:
-            if BI % ti == 0:
-                s0 = rows0 * (ti + F * ri)
-                s1 = ((BK + (F - 1) * rk) * (BJ + (F - 1) * rj)
-                      * (ti + (F - 1) * ri)) if F > 1 else 0
-                nbytes = 4 * ((s0 + s1 + 1) & ~1) + 8 * rows0
-                if nbytes <= SMEM_BUDGET:
-                    return ti, nbytes
-            ti //= 2
-        raise ValueError(f"no i tile of BI={BI} fits {SMEM_BUDGET} bytes "
-                         f"of shared memory at fuse={F}")
 
     def stream(self) -> StreamPlan:
         """Kernel K1's launch (3-D, linear taps): the block footprint (k

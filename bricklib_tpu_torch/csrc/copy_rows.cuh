@@ -1,4 +1,4 @@
-// The row copy that kernels K2, K5, K9, K10 and K11 share: one run of n
+// The row copy that kernels K2, K5, K9 and K10 share: one run of n
 // 16-byte vectors, dst[e] = src[e], spread over the x blocks of the
 // launch (the y block picks the run).  Every thread moves 16-byte vectors
 // (uint4), neighbouring threads on neighbouring addresses, several loads

@@ -44,14 +44,19 @@
 // (each (dk, di) column's 5 j taps share 8 rows).  Other tap lists take
 // the generic body: offsets read at run time, one load per tap and row.
 // Each output's sum is the chain acc = 0; acc += c[t] * x[t] in tap order,
-// as in sweep_block, so a level computed here equals the same level
-// computed there bit for bit: reuse changes which value is loaded when,
-// never the order of a sum.
+// whatever the footprint, body or kernel (K1, and K11's sweep blocks), so
+// one level computed by any of them is the same bit for bit: reuse changes
+// which value is loaded when, never the order of a sum.
 //
 // Level 0 comes in PW-float pieces (PW = 4: 16-byte cp.async.cg, straight
 // to shared memory without registers), each piece of a row wrapping modulo
 // BI as a whole (BI and H are multiples of PW), so the i wrap costs nothing
-// inside the block: the H-wide margins hold the wrapped lanes.
+// inside the block: the H-wide margins hold the wrapped lanes.  A 16-byte
+// piece is read through L2 (.cg), never a line of the SM's L1; a 4-byte
+// piece (PW = 1) takes cp.async.ca, through L1, unless CG is set: then it
+// is an __ldcg load and a shared store.  K11 sets CG, since it reads ghost
+// bricks that other blocks of its launch (or another card) have just
+// written.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -176,8 +181,9 @@ struct PlaneWalk {
     }
 };
 
-// L: the tap layout (tap_layouts.cuh), LayoutRuntime for the generic body
-template <class L>
+// L: the tap layout (tap_layouts.cuh), LayoutRuntime for the generic body;
+// CG: level 0 always through L2 (K11)
+template <class L, bool CG = false>
 __device__ __forceinline__ void stream_block(const float* __restrict__ x,
                                              float* __restrict__ out,
                                              const int* __restrict__ table,
@@ -284,6 +290,8 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
                 const float* src = x + btrow[pcb[p]] + kofs + pco[p];
                 if (PW == 4)
                     bt_cp_async16(dst + pcs[p], src);
+                else if constexpr (CG)
+                    dst[pcs[p]] = __ldcg(src);
                 else
                     bt_cp_async4(dst + pcs[p], src);
             }
@@ -300,6 +308,8 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
             float* d = dst + w.r * RW + w.c * PW;
             if (PW == 4)
                 bt_cp_async16(d, src);
+            else if constexpr (CG)
+                *d = __ldcg(src);
             else
                 bt_cp_async4(d, src);
             w.next();

@@ -24,9 +24,9 @@
 // shared-memory load (7 per element at 7 points, 125 at 125), so what a
 // design recomputes or reloads costs shared-memory cycles first.  The
 // first design (one block per output brick row, the level-0 tile grown by
-// F radii on every side, tiles shrinking per level: sweep_block in
-// pencil_sweep.cuh) recomputed 2.2 times the useful work at fuse=4, half
-// of it the k halo, and ran at 6.6% of its bound (PERF.md).
+// F radii on every side, tiles shrinking per level) recomputed 2.2 times
+// the useful work at fuse=4, half of it the k halo, and ran at 6.6% of its
+// bound (PERF.md).
 //
 // What this design does about it (pencil_stream.cuh says how).  A block
 // streams a chunk of brick rows in k as a wavefront over the fused levels,
@@ -49,8 +49,8 @@
 // and the second has left its ring.  The blocks whose chunk reaches an edge
 // keep those source planes in a stash in device memory, a pre-roll over
 // the first brick row computing the low ones first (pencil_stream.cuh).
-// So every brick row streams; the per-brick-row body sweep_block
-// (pencil_sweep.cuh) is K11's alone.
+// So every brick row streams.  K11 (fused_exchange.cu) runs the same
+// block body at F = 1 for its sweep.
 
 #include "pencil_stream.cuh"
 

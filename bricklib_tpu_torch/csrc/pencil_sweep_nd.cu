@@ -23,142 +23,100 @@
 // the computed region grown by the radius once per field and writes the
 // region once.
 //
-// What the design does about it.  This first version is the simple one:
-// one thread per output element, consecutive threads on consecutive i
-// lanes of one brick row, so every tap's loads and the store coalesce and
-// the loads a brick row's neighbours share hit L1 and L2.  The tap table
-// (field, coefficient, offset per axis) is copied to shared memory once
-// per block and read as broadcasts.  Per tap only the axes with a nonzero
-// offset do work: a compare against the brick edge, and for a crossing
-// tap a clamped table step.  Index maths is 32-bit integer division (no
-// float-reciprocal bound, unlike K4): in-brick element ids, table cells and
-// output bricks are checked to fit 32 bits, brick offsets in device memory
-// are 64-bit.  The rank is a template argument (5 to BTN_MAX_RANK) so the
-// per-axis coordinates stay in registers; extents and field pointers live
-// in a parameter block of fixed caps (BTN_MAX_RANK axes, BTN_MAX_FIELDS
-// fields).  Register blocking along i, shared-memory tiles and k streaming
-// are later work.
+// What the design does about it.  The first design (one thread per output
+// element, each decoding its element with ND divisions and walking every
+// tap through the table: 11 table loads and a clamp per axis per output)
+// spent its time in integer work and reached 9.4% of its bound (PERF.md).
+// This one streams k through each block, as the TPU kernel does and K1
+// and K4 do (pencil_stream_nd.cuh says how): a block owns one outer brick
+// cell, a chunk of brick rows, PJ pencils and TI lanes; level 0 arrives by
+// 16-byte cp.async D planes ahead, every slice of outer positions its taps
+// reach in a ring of planes in shared memory; the brick table, the clamps
+// and the row offsets are resolved once per block; threads compute four
+// rows of a column with no division, and under the 5-D star's layout
+// compiled in (LayoutStar11) share the loads of its taps.  Blocks take
+// the cells fastest, so the cells whose faces a block loads run beside it
+// and those loads mostly hit L2.  The rank is a template argument (5 to
+// BTN_MAX_RANK); extents and field pointers live in a parameter block of
+// fixed caps (BTN_MAX_RANK axes, BTN_MAX_FIELDS fields), the plan's slice
+// and tap tables in `info` (device memory), built by the host
+// (codegen/pencil_kernel_nd.py).  Each output's sum keeps the first
+// design's chain, so the two agree bit for bit.
 
-#include <cuda_runtime.h>
+#include <cstring>
 
-#define BTN_MAX_RANK 8
-#define BTN_MAX_FIELDS 8
-#define BTN_MAX_TAPS 512
+#include "pencil_stream_nd.cuh"
 
-struct NdGeom {
-    int ntaps;
-    int belems;                            // elements per brick
-    int nout;                              // output bricks
-    int B[BTN_MAX_RANK];                   // brick extent per axis
-    int G[BTN_MAX_RANK];                   // table extent per table axis
-    int R0[BTN_MAX_RANK];                  // first output brick per axis
-    int RC[BTN_MAX_RANK];                  // output bricks per axis
-    int tstride[BTN_MAX_RANK];             // table strides
-    int estride[BTN_MAX_RANK];             // in-brick element strides
-    const float* x[BTN_MAX_FIELDS];        // input storages
-};
-
-// One thread per output element: blockIdx.x * blockDim.x + threadIdx.x is
-// the element of the brick, blockIdx.y + 65535 * blockIdx.z the output
-// brick.  ND is a template argument so that the per-axis coordinates stay
-// in registers (fully unrolled loops) and not in local memory.
-template <int ND>
-__global__ void __launch_bounds__(256)
-pencil_sweep_nd_kernel(NdGeom g, const int* __restrict__ taps,
+// One block of 512 threads per SM at most (shared memory allows no more
+// at the planner's footprints), so a thread may hold 128 registers.
+template <int ND, class L>
+__global__ void __launch_bounds__(BT_STREAM_THREADS, 1)
+pencil_sweep_nd_kernel(NdGeom g, const int* __restrict__ info,
                        const int* __restrict__ table,
                        float* __restrict__ out) {
-    extern __shared__ int s_taps[];
-    const int row = ND + 2;
-    for (int t = threadIdx.x; t < g.ntaps * row; t += blockDim.x)
-        s_taps[t] = taps[t];
-    __syncthreads();
-
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    const int ob = blockIdx.z * 65535 + blockIdx.y;
-    if (e >= g.belems || ob >= g.nout) return;
-
-    int x[ND];
-    int gb[ND - 1];
-    int r = e;
-#pragma unroll
-    for (int a = ND - 1; a >= 0; --a) {
-        x[a] = r % g.B[a];
-        r /= g.B[a];
-    }
-    int q = ob;
-    int tbase = 0;
-#pragma unroll
-    for (int a = ND - 2; a >= 0; --a) {
-        gb[a] = g.R0[a] + q % g.RC[a];
-        q /= g.RC[a];
-        tbase += gb[a] * g.tstride[a];
-    }
-
-    const int BI = g.B[ND - 1];
-    float acc = 0.0f;
-    for (int t = 0; t < g.ntaps; ++t) {
-        const int* tp = s_taps + t * row;
-        int eo = e;
-        int to = tbase;
-#pragma unroll
-        for (int a = 0; a < ND - 1; ++a) {
-            const int o = tp[2 + a];
-            if (!o) continue;
-            int c = x[a] + o;
-            const int d = c < 0 ? -1 : (c >= g.B[a] ? 1 : 0);
-            c -= d * g.B[a];
-            eo += (c - x[a]) * g.estride[a];
-            if (d) {
-                int nb = gb[a] + d;
-                nb = nb < 0 ? 0 : (nb > g.G[a] - 1 ? g.G[a] - 1 : nb);
-                to += (nb - gb[a]) * g.tstride[a];
-            }
-        }
-        const int oi = tp[ND + 1];
-        if (oi) {
-            int c = (x[ND - 1] + oi) % BI;
-            if (c < 0) c += BI;
-            eo += c - x[ND - 1];
-        }
-        const long long id = __ldg(table + to);
-        acc += __int_as_float(tp[1])
-               * __ldg(g.x[tp[0]] + id * g.belems + eo);
-    }
-    out[(long long)__ldg(table + tbase) * g.belems + e] = acc;
+    extern __shared__ __align__(16) float smem[];
+    stream_nd_block<ND, L>(g, info, table, out, blockIdx.x, smem);
 }
 
-template <int ND>
-static cudaError_t launch_nd(const NdGeom& g, const int* taps,
-                             const int* table, float* out, int threads,
-                             cudaStream_t st) {
-    dim3 grid((g.belems + threads - 1) / threads,
-              g.nout < 65535 ? g.nout : 65535, (g.nout + 65534) / 65535);
-    const size_t smem = (size_t)g.ntaps * (ND + 2) * sizeof(int);
-    pencil_sweep_nd_kernel<ND><<<grid, threads, smem, st>>>(g, taps, table,
-                                                            out);
+template <int ND, class L>
+static cudaError_t launch_nd(const NdGeom& g, const int* info,
+                             const int* table, float* out, long long blocks,
+                             int threads, int smem_bytes, cudaStream_t st) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pencil_sweep_nd_kernel<ND, L>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return err;
+    }
+    pencil_sweep_nd_kernel<ND, L><<<(unsigned)blocks, threads, smem_bytes,
+                                    st>>>(g, info, table, out);
     return cudaGetLastError();
 }
 
+// The tap rows (field, coefficient bits, offset per axis) equal the 5-D
+// star's layout.
+static bool star11_matches(const int* rows, int ntaps) {
+    if (ntaps != LayoutStar11::N) return false;
+    for (int t = 0; t < ntaps; ++t) {
+        if (rows[7 * t] != 0) return false;
+        for (int a = 0; a < 5; ++a)
+            if (rows[7 * t + 2 + a] != LayoutStar11::off(t, a)) return false;
+    }
+    return true;
+}
+
+// hdr: nd, bdims[8], grid[8], first[8], count[8] (table axes, padded),
+// then the footprint and the plan's counts, in the order of
+// K12_HEADER (codegen/pencil_kernel_nd.py).  tap_rows: ntaps x (nd + 2)
+// host ints (field, coefficient bits, offset per axis); info: the plan's
+// tables on the card.  layout: the host planned for the 5-D star's
+// compiled body; the taps are checked against it here too.
+#define BTN_HDR 56
 extern "C" int bt_pencil_sweep_nd(const unsigned long long* ptrs, int nf,
-                                  void* out, const void* table, int nd,
-                                  const int* dims, const int* grid,
-                                  const int* first, const int* count,
-                                  const void* taps, int ntaps, int threads,
-                                  void* stream) {
+                                  void* out, const void* table,
+                                  const void* info, const int* hdr, int nhdr,
+                                  const int* tap_rows, int ntaps,
+                                  int smem_bytes, int threads, void* stream) {
+    if (nhdr != BTN_HDR) return (int)cudaErrorInvalidValue;
+    const int nd = hdr[0];
     if (nd < 5 || nd > BTN_MAX_RANK || nf < 1 || nf > BTN_MAX_FIELDS
         || ntaps < 1 || ntaps > BTN_MAX_TAPS || threads < 32
-        || threads > 256)
+        || threads > BT_STREAM_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
+    const int* dims = hdr + 1;
+    const int* grid = hdr + 9;
+    const int* first = hdr + 17;
+    const int* count = hdr + 25;
+    const int* f = hdr + 33;
+    const int m = nd - 3;
     NdGeom g = {};
-    g.ntaps = ntaps;
     long long belems = 1;
-    for (int a = nd - 1; a >= 0; --a) {
+    for (int a = 0; a < nd; ++a) {
         if (dims[a] < 1) return (int)cudaErrorInvalidValue;
-        g.B[a] = dims[a];
-        g.estride[a] = (int)belems;
         belems *= dims[a];
     }
-    long long nout = 1, ts = 1;
+    long long ts = 1, ncell = 1;
     for (int a = nd - 2; a >= 0; --a) {
         if (grid[a] < 1 || count[a] < 1 || first[a] < 0
             || first[a] + count[a] > grid[a])
@@ -168,23 +126,85 @@ extern "C" int bt_pencil_sweep_nd(const unsigned long long* ptrs, int nf,
         g.RC[a] = count[a];
         g.tstride[a] = (int)ts;
         ts *= grid[a];
-        nout *= count[a];
+        if (a < m) ncell *= count[a];
     }
-    // in-brick element ids, table cells and output bricks are 32-bit
-    if (belems > 0x7fffffffLL || ts > 0x7fffffffLL || nout > 0x7fffffffLL)
+    if (belems > 0x7fffffffLL || ts > 0x7fffffffLL || ncell > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
-    g.belems = (int)belems;
-    g.nout = (int)nout;
-    for (int f = 0; f < nf; ++f)
-        g.x[f] = (const float*)ptrs[f];
-    const int* tp = (const int*)taps;
+    g.BK = dims[m];
+    g.BJ = dims[m + 1];
+    g.BI = dims[m + 2];
+    g.belems = belems;
+    g.KCH = f[0];
+    g.PJ = f[1];
+    g.TI = f[2];
+    g.H = f[3];
+    g.PW = f[4];
+    g.D = f[5];
+    g.PB = f[6];
+    g.NS = f[7];
+    g.NRA = f[8];
+    g.NRB = f[9];
+    g.PSA = f[10];
+    g.PSB = f[11];
+    g.nitems = f[12];
+    g.o_slice = f[13];
+    g.o_rows = f[14];
+    g.o_pofs = f[15];
+    g.o_toff = f[16];
+    g.o_tring = f[17];
+    g.o_taps = f[18];
+    g.klo = f[19];
+    g.khi = f[20];
+    g.jlo = f[21];
+    const int layout = f[22];
+    g.NT = ntaps;
+    g.RW = g.TI + 2 * g.H;
+    g.RA = g.klo + g.khi + 1 + g.D;
+    g.RB = 1 + g.D;
+    g.ncell = (int)ncell;
+    g.nchunk = (count[m] + g.KCH - 1) / (g.KCH > 0 ? g.KCH : 1);
+    g.njg = (count[m + 1] + g.PJ - 1) / (g.PJ > 0 ? g.PJ : 1);
+    g.nit = g.TI > 0 ? g.BI / g.TI : 0;
+    int ri = 0;
+    for (int t = 0; t < ntaps; ++t) {
+        const int* r = tap_rows + t * (nd + 2);
+        const int di = r[nd + 1] < 0 ? -r[nd + 1] : r[nd + 1];
+        ri = di > ri ? di : ri;
+        if (r[0] < 0 || r[0] >= nf || r[2 + m] < -g.klo || r[2 + m] > g.khi)
+            return (int)cudaErrorInvalidValue;
+        if (t < BTN_PARAM_TAPS) std::memcpy(&g.c[t], &r[1], sizeof(float));
+    }
+    const int cpr = (g.TI + 31) / 32;
+    if (g.KCH < 1 || g.PJ < 1 || g.TI < 1 || g.BI % g.TI
+        || (g.PW != 1 && g.PW != 4) || g.BI % g.PW || g.TI % g.PW
+        || g.H % g.PW || g.H < ri || (g.D != 1 && g.D != 2) || g.PB < 1
+        || g.PB >= 4096 || g.PJ * g.BJ >= 4096 || cpr >= 128 || g.NS < 1
+        || g.NRA < 0 || g.NRB < 0 || g.klo < 0 || g.khi < 0
+        || g.klo > g.BK || g.khi > g.BK
+        || g.nitems < g.PB * ((g.PJ * g.BJ + BT_UR - 1) / BT_UR) * cpr
+        || (long long)(g.KCH + 2) * g.BK + g.klo + g.khi + 1 >= BT_PLANE_SPAN
+        || stream_nd_smem_bytes(g) > smem_bytes)
+        return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < nf; ++i)
+        g.x[i] = (const float*)ptrs[i];
+    const long long blocks = (long long)g.ncell * g.nit * g.njg * g.nchunk;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int* in = (const int*)info;
     const int* tb = (const int*)table;
     float* o = (float*)out;
     cudaStream_t st = (cudaStream_t)stream;
+    if (layout && nd == 5 && star11_matches(tap_rows, ntaps))
+        return (int)launch_nd<5, LayoutStar11>(g, in, tb, o, blocks, threads,
+                                               smem_bytes, st);
     switch (nd) {
-    case 5: return (int)launch_nd<5>(g, tp, tb, o, threads, st);
-    case 6: return (int)launch_nd<6>(g, tp, tb, o, threads, st);
-    case 7: return (int)launch_nd<7>(g, tp, tb, o, threads, st);
-    default: return (int)launch_nd<8>(g, tp, tb, o, threads, st);
+    case 5: return (int)launch_nd<5, LayoutRuntime>(g, in, tb, o, blocks,
+                                                    threads, smem_bytes, st);
+    case 6: return (int)launch_nd<6, LayoutRuntime>(g, in, tb, o, blocks,
+                                                    threads, smem_bytes, st);
+    case 7: return (int)launch_nd<7, LayoutRuntime>(g, in, tb, o, blocks,
+                                                    threads, smem_bytes, st);
+    default: return (int)launch_nd<8, LayoutRuntime>(g, in, tb, o, blocks,
+                                                     threads, smem_bytes,
+                                                     st);
     }
 }

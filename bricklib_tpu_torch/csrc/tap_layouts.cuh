@@ -1,5 +1,6 @@
-// The tap layouts kernels K1 and K4 compile in (pencil_stream.cuh,
-// stream_block; pencil_stream_4d.cuh, stream4_block).
+// The tap layouts kernels K1, K4 and K12 compile in (pencil_stream.cuh,
+// stream_block; pencil_stream_4d.cuh, stream4_block; pencil_stream_nd.cuh,
+// stream_nd_block).
 //
 // A layout is the offsets (dk, dj, di) of a linear stencil's taps, (dw,
 // dk, dj, di) for K4, in tap order, known at compile time.  Under a
@@ -101,7 +102,29 @@ struct LayoutStar9 {
     }
 };
 
-// the generic body (K1 and K4): the taps' offsets read at run time
+// the 5-D 11-point star (K12): per tap its offsets in numpy axis order
+// (outer axes 0 and 1, k, j, i), centre, +i, -i, +j, -j, +k, -k, +o1,
+// -o1, +o0, -o0.  outer(t): the tap reads another outer position (its dk,
+// dj and di are 0).
+struct LayoutStar11 {
+    static constexpr int N = 11, R = 1;
+    __host__ __device__ static constexpr int off(int t, int a) {
+        constexpr int v[N][5] = {
+            {0, 0, 0, 0, 0}, {0, 0, 0, 0, 1}, {0, 0, 0, 0, -1},
+            {0, 0, 0, 1, 0}, {0, 0, 0, -1, 0}, {0, 0, 1, 0, 0},
+            {0, 0, -1, 0, 0}, {0, 1, 0, 0, 0}, {0, -1, 0, 0, 0},
+            {1, 0, 0, 0, 0}, {-1, 0, 0, 0, 0}};
+        return v[t][a];
+    }
+    __host__ __device__ static constexpr int dk(int t) { return off(t, 2); }
+    __host__ __device__ static constexpr int dj(int t) { return off(t, 3); }
+    __host__ __device__ static constexpr int di(int t) { return off(t, 4); }
+    __host__ __device__ static constexpr bool outer(int t) {
+        return off(t, 0) != 0 || off(t, 1) != 0;
+    }
+};
+
+// the generic body (K1, K4 and K12): the taps' offsets read at run time
 struct LayoutRuntime {
     static constexpr int N = 0, R = 0;
 };

@@ -700,10 +700,12 @@ def check_fused(name: str, case, err: dict) -> None:
         e = max(e, ee)
     err["K11"] = max(err.get("K11", 0.0), e)
     rows = sum(len(cp.rows) for cp in fn.cards)
-    gated = sum(int((cp.items[:, 4] != 0).sum()) for cp in fn.cards)
+    gated = sum(int((cp.items[:, 2] != 0).sum()) for cp in fn.cards)
+    sp = fn.cards[0].stream
     print(f"[3 K11 {name}] {rows} copy chunks, "
-          f"{sum(len(cp.items) for cp in fn.cards)} tiles ({gated} gated), "
-          f"tile {fn.plan.tile()[0]} lanes; storage "
+          f"{sum(len(cp.items) for cp in fn.cards)} stream blocks ({gated} "
+          f"gated), K1's footprint {sp.kch} brick rows x {sp.pj} pencils x "
+          f"{sp.ti} lanes; storage "
           f"{'bit-exact' if same else 'MISMATCH'} (PUT and plain), output "
           f"{'bit-exact' if same_k1 else 'MISMATCH'} against PUT + K1, max "
           f"abs err {e:.3e} against the plain version (abs-or-rel "
@@ -2002,31 +2004,10 @@ def star_nd(nd: int, two: bool = False, corner: bool = False):
     """A rank-``nd`` stencil in the port's eDSL: the ``2 nd + 1``-point
     star (radius 1 on every axis, distinct coefficients); ``two`` adds
     taps of a second input ``aux``; ``corner`` adds two taps that cross
-    three axes at once."""
-    from bricklib_tpu_torch.st import Grid, Index
-    from bricklib_tpu_torch.st.loader import load_stencil_module
+    three axes at once (``bench/k12_regimes.py`` builds it)."""
+    from bricklib_tpu_torch.bench.k12_regimes import star_nd as build
 
-    idx = [Index(a) for a in range(nd)]
-    g, o = Grid("in", nd), Grid("out", nd)
-
-    def at(grid, **moves):
-        ii = list(idx)
-        for a, d in moves.items():
-            ii[int(a[1:])] = idx[int(a[1:])] + d
-        return grid(*ii)
-
-    e = 0.3 * g(*idx)
-    for a in range(nd):
-        for d in (1, -1):
-            e = e + (0.05 + 0.01 * a + 0.003 * d) * at(g, **{f"a{a}": d})
-    if corner:
-        e = e + 0.07 * at(g, a0=1, a3=1, a4=-1) - 0.02 * at(g, a1=-1,
-                                                            a2=1, a4=1)
-    if two:
-        h = Grid("aux", nd)
-        e = e + 0.11 * at(h, a2=1) - 0.05 * at(h, a4=-1, a0=1)
-    o(*idx).assign(e)
-    return load_stencil_module({"STENCIL": [o]})[0]
+    return build(nd, two, corner)
 
 
 def nd_case(dims, bd, sdef, seed: int):
@@ -2077,6 +2058,7 @@ def check_nd(name: str, fn, xs, dec, err: dict) -> None:
     import torch
 
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_plain
+    from bricklib_tpu_torch.codegen.pencil_kernel_nd import stream_plan_nd
     from bricklib_tpu_torch.core.setup import from_bricks
 
     got = fn(*xs)
@@ -2089,7 +2071,11 @@ def check_nd(name: str, fn, xs, dec, err: dict) -> None:
     own = from_bricks(got.view(dec.nbricks, -1), dec.interior_grid(),
                       fn.plan.bdims)
     ok2, e2 = close(own, nd_twin(xs, fn, dec), 1e-4)
-    print(f"[3 K12 {name}] {len(w)} bricks: max abs err {e:.3e} against "
+    sp = stream_plan_nd(fn.plan)
+    print(f"[3 K12 {name}] {len(w)} bricks, {sp.nstream} blocks of "
+          f"{sp.kch} brick rows x {sp.pj} pencils x {sp.ti} lanes, "
+          f"{'the compiled star' if sp.layout else 'the generic body'}: "
+          f"max abs err {e:.3e} against "
           f"the plain version (abs-or-rel {K1_TOL:g}) "
           f"{'ok' if ok else 'MISMATCH'}; {e2:.3e} against the dense "
           f"i-wrapped twin (1e-4) {'ok' if ok2 else 'MISMATCH'}")

@@ -22,6 +22,8 @@ K11 itself runs only on the card: ``tests/test_torch_gpu.py`` and
 exchange followed by K1.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -244,10 +246,12 @@ def _needed_groups(dec, fn, rank_copies):
     ["cpu"] * 4, ["cuda:0", "cuda:0", "cuda:1", "cuda:1"]],
     ids=["one-card", "two-cards"])
 def test_gating_plan(devices, rings):
-    """Every tile that reads a copied brick waits on every group it reads
-    and on no other; each expected count is the number of chunks that
-    land in that (rank, group); the tiles that wait come after every copy
-    and every tile that does not."""
+    """Every stream block of K1's plan for the card's ranks appears once
+    per rank; a block waits on the union of the groups that the output
+    bricks of its chunk and pencils read (its i tile reads whole pencils)
+    and on no other; each expected count is the number of chunks that land
+    in that (rank, group); the blocks that wait come after every block
+    that does not."""
     mesh_shape = (2, 2, 1)
     _ref, dec = _decs(rings)
     mesh = Mesh(mesh_shape, ("z", "y", "x"), devices)
@@ -263,19 +267,31 @@ def test_gating_plan(devices, rings):
         key = (r, fx.GROUPS.index(g))
         chunks[key] = chunks.get(key, 0) + -(-(d1 - d0) * vecs
                                              // fx.CHUNK_VECS)
-    ntile = BD[2] // fn.plan.tile()[0]
     for c, cp in enumerate(fn.cards):
         ranks = mesh.ranks_on(c)
+        sp = cp.stream
+        assert sp == dataclasses.replace(
+            fn.plan, batch=len(ranks), batch_stride=dec.nbricks).stream()
+        blocks = sp.blocks()
+        nper = sp.nchunk * sp.njg * sp.nit
         items = cp.items
-        assert len(items) == len(ranks) * len(need) * ntile
-        for slot, k, j, _t, bits in items:
-            assert bits == need[k, j]
-        gated = items[:, 4] != 0
+        assert len(items) == len(blocks) == len(ranks) * nper
+        assert sorted(map(tuple, items[:, :2].tolist())) == [
+            (s, b) for s in range(len(ranks)) for b in range(nper)]
+        for slot, b, bits in items:
+            sub, (k0, k1), (j0, j1), _i, _edges = blocks[slot * nper + b]
+            assert sub == slot
+            want = 0
+            for k in range(k0, k1):
+                for j in range(j0, j1):
+                    want |= need[k, j]
+            assert bits == want
+        gated = items[:, 2] != 0
         assert gated.any() and not gated[:int((~gated).sum())].any()
         for slot, r in enumerate(ranks):
             for g in range(3):
                 assert cp.expect[3 * slot + g] == chunks.get((r, g), 0)
-        # copies take the first tickets and wait on nothing
+        # a card's chunks: its own rows, each counted where it lands
         for dc, _do, sc, _so, n, counter in cp.rows:
             assert sc == c and 0 < n <= fx.CHUNK_VECS
             assert fn.cards[dc].expect[counter] > 0

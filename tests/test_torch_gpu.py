@@ -38,10 +38,12 @@ from bricklib_tpu_torch.codegen.mxu_kernel import (launch_mxu,
                                                    pencil_sweep_mxu,
                                                    pencil_sweep_mxu_kernel,
                                                    pencil_sweep_mxu_plain)
-from bricklib_tpu_torch.codegen.pencil_kernel import (_launch_stream,
+from bricklib_tpu_torch.codegen.pencil_kernel import (SweepPlan,
+                                                      _launch_stream,
                                                       pencil_sweep,
                                                       pencil_sweep_kernel,
-                                                      pencil_sweep_plain)
+                                                      pencil_sweep_plain,
+                                                      stream_smem)
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
     launch_2d, pencil_sweep_2d, pencil_sweep_2d_kernel, pencil_sweep_2d_plain,
     row_footprint)
@@ -708,6 +710,33 @@ def test_fused_exchange_kernel_matches_put_and_k1_other_stencils(cuda,
     _check_fused(*_fused_case([cuda] * 4, name=name))
 
 
+@pytest.mark.parametrize("kch,pj,ti", [(3, 2, 32), (4, 1, 16)])
+def test_fused_exchange_kernel_ghost_rows_mid_stream(cuda, monkeypatch, kch,
+                                                     pj, ti):
+    """K11 with every stream plan at a footprint of several brick rows a
+    chunk (ghosts two bricks deep, a table of 10 brick rows): the chunks
+    that reach the khi ghost rows reach them mid-stream, after owned rows,
+    and wait on that group all the same.  Bit for bit against the PUT
+    exchange + K1 at the same footprint."""
+    import dataclasses
+
+    planned = SweepPlan.stream
+
+    def stream(plan):
+        sp = planned(plan)
+        return dataclasses.replace(
+            sp, kch=kch, pj=pj, ti=ti,
+            smem_bytes=stream_smem(plan.bdims, plan.fuse, plan.lo, plan.hi,
+                                   kch, pj, ti, sp.h, sp.d, sp.skew))
+
+    monkeypatch.setattr(SweepPlan, "stream", stream)
+    case = _fused_case([cuda] * 4, rings=2)
+    sp = case[0].cards[0].stream
+    assert (sp.kch, sp.pj, sp.ti) == (kch, pj, ti) and sp.nchunk > 1
+    assert case[0].plan.table.shape[0] == 10
+    _check_fused(*case)
+
+
 def test_fused_exchange_kernel_across_two_cards(cuda):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
@@ -762,6 +791,33 @@ def test_sweep_nd_kernel_matches_plain(cuda, dims, bd, kw, ranges):
     assert pencil_sweep_nd_kernel.launches == before + 1
     want = pencil_sweep_plain(xs, torch.from_numpy(fn.plan.table).to(cuda),
                               fn.plan)
+    torch.cuda.synchronize()
+    w = fn.plan.written_bricks()
+    assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
+
+
+@pytest.mark.parametrize("fp", [(1, 1, 16, 2), (3, 1, 32, 1),
+                                (2, 2, 64, 2)])
+def test_sweep_nd_kernel_star_at_other_footprints(cuda, fp):
+    """K12's compiled 5-D star at footprints of several blocks per outer
+    cell (k chunks of 1 to 3 brick rows, one or two pencils, i tiles of 16
+    to 64 lanes of 64), against its plain version at abs-or-rel 1e-5."""
+    from bricklib_tpu_torch.codegen.pencil_kernel_nd import (
+        nd_info, pencil_sweep_nd, pencil_sweep_nd_kernel,
+        stream_nd_footprint)
+
+    dims, bd = (4, 4, 16, 8, 64), (2, 2, 4, 4, 64)
+    dec = BrickDecomp(dims=dims, ghost_depth=bd[:-1] + (0,),
+                      bdims=bd).initialize(skinlist_by_name("good", 5))
+    fn = pencil_sweep_nd(star_nd(st, 5), dec.grid, bd, dec.nbricks, {})
+    sp = stream_nd_footprint(fn.plan, *fp)
+    assert sp.layout and sp.nstream > sp.ncell
+    x = torch.from_numpy(random_array((dec.nbricks,) + bd, np.float32,
+                                      9)).to(cuda)
+    table = torch.from_numpy(fn.plan.table).to(cuda)
+    info = torch.from_numpy(nd_info(fn.plan, sp)[0]).to(cuda)
+    got = pencil_sweep_nd_kernel([x], table, info, fn.plan, sp)
+    want = pencil_sweep_plain([x], table, fn.plan)
     torch.cuda.synchronize()
     w = fn.plan.written_bricks()
     assert compare_arrays(got.cpu().numpy()[w], want.cpu().numpy()[w], 1e-5)
