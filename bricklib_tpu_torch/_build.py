@@ -49,9 +49,10 @@ SIGNATURES = {
                            + [_VOID] * 3 + [_INT, _INT, _VOID],
     "bt_pencil_sweep_nd": [_VOID, _INT] + [_VOID] * 4 + [_INT, _VOID]
                           + [_INT] * 3 + [_VOID],
-    "bt_dense_stencil": [_VOID, _VOID] + [_INT] * 14 + [_VOID] * 5
+    "bt_dense_stencil": [_VOID, _VOID] + [_INT] * 19 + [_VOID] * 5
                         + [_INT, _INT, _VOID],
-    "bt_copy_intervals": [_VOID, _VOID, _INT, _I64, _VOID],
+    "bt_copy_pool": [_VOID, _VOID, _I64, _VOID, _INT, _VOID, _INT, _INT,
+                     _VOID],
     "bt_copy_stage": [_VOID, _VOID, _VOID, _INT, _I64, _VOID],
     "bt_copy_storage": [_VOID, _VOID, _I64, _VOID],
     "bt_remote_copy": [_VOID, _INT, _VOID, _INT, _I64, _VOID],

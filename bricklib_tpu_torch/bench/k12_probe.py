@@ -37,10 +37,7 @@ these forms.
 from __future__ import annotations
 
 import os
-import re
-import subprocess
 import sys
-from collections import Counter
 from pathlib import Path
 
 # by path: a worker imports the package of the tree under test, which
@@ -76,32 +73,12 @@ FORMS = {
 }
 
 
-def sass_runs(lib: Path, top: int = 4) -> dict:
-    """The 5-D kernel of ``lib`` (the compiled star's where there is one):
-    its name and its runs of instructions between branches that hold
-    FFMAs, by opcode, the ``top`` largest."""
-    from bricklib_tpu_torch import _build
-
-    sass = subprocess.run(
-        [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
-         str(lib)], capture_output=True, text=True, check=True,
-        timeout=300).stdout
-    funcs = sass.split("Function : ")[1:]
+def five_d(funcs: list) -> str:
+    """The 5-D kernel among ``funcs`` (the compiled star's where there is
+    one)."""
     five = [f for f in funcs if "ILi5E" in f.split("\n", 1)[0]]
-    kernel = next((f for f in five if "LayoutStar11" in f.split("\n", 1)[0]),
-                  five[0])
-    ops = [m.group(1).split(".")[0] for m in re.finditer(
-        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-        kernel)]
-    runs, cur = [], Counter()
-    for op in ops:
-        cur[op] += 1
-        if op in ("BRA", "EXIT", "BAR"):
-            if cur["FFMA"]:
-                runs.append(dict(cur.most_common()))
-            cur = Counter()
-    runs.sort(key=lambda r: -sum(r.values()))
-    return {"kernel": kernel.split("\n", 1)[0].strip(), "runs": runs[:top]}
+    return next((f for f in five if "LayoutStar11" in f.split("\n", 1)[0]),
+                five[0])
 
 
 def path_sweep():
@@ -129,7 +106,7 @@ def worker(tree: Path, reps: int) -> dict:
     x = storage(shape, 3)
     res = k8_probe.time_forms(libs, ENTRY, lambda: fn(x), reps)
     if os.environ.get("K12_PROBE_SASS") == "1":
-        res["sass"] = sass_runs(libs["full"])
+        res["sass"] = k8_probe.sass_runs(libs["full"], five_d)
     return res
 
 

@@ -32,8 +32,10 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -140,6 +142,32 @@ def time_forms(libs: dict, entry: str, run, reps: int) -> dict:
     finally:
         _build._lib = full
     return ms
+
+
+def sass_runs(lib: Path, pick, top: int = 4) -> dict:
+    """The kernel of ``lib`` that ``pick`` chooses from the texts of its
+    functions (``cuobjdump -sass``): its name and its runs of
+    instructions between branches that hold FFMAs, by opcode, the ``top``
+    largest."""
+    from bricklib_tpu_torch import _build
+
+    sass = subprocess.run(
+        [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+         str(lib)], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    kernel = pick(sass.split("Function : ")[1:])
+    ops = [m.group(1).split(".")[0] for m in re.finditer(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+        kernel)]
+    runs, cur = [], Counter()
+    for op in ops:
+        cur[op] += 1
+        if op in ("BRA", "EXIT", "BAR"):
+            if cur["FFMA"]:
+                runs.append(dict(cur.most_common()))
+            cur = Counter()
+    runs.sort(key=lambda r: -sum(r.values()))
+    return {"kernel": kernel.split("\n", 1)[0].strip(), "runs": runs[:top]}
 
 
 def sweep_125():

@@ -14,17 +14,22 @@ order.
 A CPU tensor takes :func:`dense_stencil_plain` (any stencil, through the
 copied executor ``jnp_backend._run``); a CUDA tensor launches kernel K7
 (``csrc/dense_stencil.cu``) for a linear stencil, folded into one tap per
-(field, dk, dj, di), or raises.  The reference's TPU alignment rules
-(padded i extent a multiple of 128, tiles dividing the interior, j tile
-and j pad in whole 8-row sublanes) are kept as checks, so both packages
-accept and refuse the same calls; ``tile_elems`` and ``vmem_limit_bytes``
-change nothing here.  ``pallas_brick_stencil`` (the i-bricked wrapper of
-kernel 1) is not ported: :func:`brick_stencil` raises.
+(field, dk, dj, di), or raises.  K7 streams k through each block: its
+launch is planned by :meth:`DensePlan.stream` (k chunk, j rows and i
+lanes a block, planes loaded ahead), and the 7-point star in its folded
+order (s7pt, mpi7pt) runs a body with the taps' offsets compiled in.  The
+reference's TPU alignment rules (padded i extent a multiple of 128, tiles
+dividing the interior, j tile and j pad in whole 8-row sublanes) are kept
+as checks, so both packages accept and refuse the same calls;
+``tile_elems`` and ``vmem_limit_bytes`` change nothing here.
+``pallas_brick_stencil`` (the i-bricked wrapper of kernel 1) is not
+ported: :func:`brick_stencil` raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -34,21 +39,29 @@ from .. import _build
 from ..core import not_ported
 from .evaluate import TorchNS, resolve_const_from_params
 from .jnp_backend import _np_offsets, _run
-from .pencil_kernel import FEATURES_ITEM, _is_f32
+from .pencil_kernel import (BLOCK_COST, FEATURES_ITEM, LOAD_COST, SM_COUNT,
+                            SM_SMEM, SM_BLOCK_RESERVE, SM_THREADS, STEP_COST,
+                            STREAM_ROWS, STREAM_SMEM_BUDGET, STREAM_THREADS,
+                            _is_f32, _layouts, stream_loads)
 from .pencil_kernel_2d import fold_linear_forms
 from .taps import as_ir
 
-__all__ = ["K7_SMEM_BUDGET", "K7_THREADS", "DensePlan", "brick_stencil",
-           "choose_tile", "dense_stencil", "dense_stencil_kernel",
-           "dense_stencil_plain"]
+__all__ = ["K7_LAYOUTS", "K7_MAX_FIELDS", "K7_MAX_TAPS", "DensePlan",
+           "DenseStream", "brick_stencil", "choose_tile", "dense_smem",
+           "dense_stencil", "dense_stencil_kernel", "dense_stencil_plain",
+           "launch_dense"]
 
-K7_THREADS = 256
-# shared memory per block: 100 KiB lets two blocks share one SM
-K7_SMEM_BUDGET = 100 * 1024
-K7_TJ, K7_TI = 8, 128       # j rows and i columns per block (in the .cu)
-K7_TK = (8, 4, 2, 1)        # k rows per block, the first that fits
 K7_MAX_FIELDS = 8
 K7_MAX_TAPS = 128
+# output j rows a block may own (multiples of STREAM_ROWS)
+K7_MAX_TJ = 64
+# output k rows a chunk may hold: on the H100 the first out-of-core slab
+# ran 0.56 to 0.57 ms in chunks of 8 to 21 rows against 0.63 in one chunk
+# of 147, at the same j rows and i lanes (bench/k7_regimes.py --footprints)
+K7_MAX_KCH = 24
+# the tap layouts K7 compiles in (csrc/tap_layouts.cuh, in the folded order
+# of plan.taps): the 7-point star (s7pt; mpi7pt has its offsets)
+K7_LAYOUTS = ("s7pt",)
 
 
 def choose_tile(interior_cells: Sequence[int], bdims: Sequence[int],
@@ -97,19 +110,144 @@ class DensePlan:
     def interior(self) -> tuple:
         return tuple(s - 2 * p for s, p in zip(self.shape, self.pad))
 
-    def tile_k(self) -> tuple[int, int]:
-        """(k rows per block, shared-memory bytes) for kernel K7: the
-        first of :data:`K7_TK` whose input tiles fit
-        :data:`K7_SMEM_BUDGET`."""
-        ej = K7_TJ + self.lo[1] + self.hi[1]
-        ei = K7_TI + self.lo[2] + self.hi[2]
-        for tk in K7_TK:
-            nbytes = 4 * len(self.fields) * (tk + self.lo[0] + self.hi[0]) \
-                * ej * ei
-            if nbytes <= K7_SMEM_BUDGET:
-                return tk, nbytes
-        raise ValueError(f"no k tile fits {K7_SMEM_BUDGET} bytes of shared "
-                         f"memory with {len(self.fields)} fields")
+    def layout(self) -> str | None:
+        """The tap layout K7 compiles in that this stencil's folded taps
+        equal, offsets and order (one field, reach equal on every side of
+        k and j): the corpus stencil it is named after, or None for the
+        generic body."""
+        if self.taps is None or len(self.fields) != 1:
+            return None
+        offs = [list(k[1:]) for k, _c in self.taps]
+        for name, lay in zip(K7_LAYOUTS, _layouts(K7_LAYOUTS)):
+            r = max(max(abs(v) for v in o) for o in lay)
+            if (offs == lay and self.lo[:2] == (r, r)
+                    and self.hi[:2] == (r, r)):
+                return name
+        return None
+
+    def stream(self) -> "DenseStream":
+        """Kernel K7's launch (linear taps): the block footprint of least
+        estimated cost (:func:`_dense_stream`)."""
+        if self.taps is None:
+            raise ValueError("kernel K7 takes linear stencils")
+        loads = (stream_loads([k[1:] for k, _c in self.taps], K7_LAYOUTS)
+                 if self.layout() else float(len(self.taps)))
+        return _dense_stream(self.shape, self.pad, self.lo, self.hi,
+                             len(self.fields), len(self.taps), loads)
+
+
+@dataclass(frozen=True)
+class DenseStream:
+    """K7's launch as :meth:`DensePlan.stream` plans it.  Over the output
+    rows ``[pk, SK - pk)`` x ``[pj, SJ - pj)`` of the padded ``shape``, a
+    block owns a chunk of ``kch`` k rows, ``tj`` j rows and ``ti`` i lanes
+    and walks its chunk in k; each input plane comes into a ring of ``lo[0]
+    + hi[0] + 1 + d`` planes per field (``d`` loaded ahead), ``tj + lo[1] +
+    hi[1]`` rows of ``ti + 2h`` floats each.  ``smem_bytes`` is the
+    launch's dynamic shared memory."""
+
+    shape: tuple
+    pad: tuple
+    lo: tuple
+    hi: tuple
+    nf: int
+    kch: int
+    tj: int
+    ti: int
+    h: int
+    d: int
+    smem_bytes: int
+
+    @property
+    def nchunk(self) -> int:
+        return -(-(self.shape[0] - 2 * self.pad[0]) // self.kch)
+
+    @property
+    def njg(self) -> int:
+        return -(-(self.shape[1] - 2 * self.pad[1]) // self.tj)
+
+    @property
+    def nit(self) -> int:
+        return self.shape[2] // self.ti
+
+    @property
+    def nblocks(self) -> int:
+        return self.nchunk * self.njg * self.nit
+
+    def blocks(self) -> list:
+        """Every block of the launch in grid order, decoded as the kernel
+        decodes it: ``(computed, written)``, each a box ``((k0, k1), (j0,
+        j1), (i0, i1))`` of the padded array; the block computes the first
+        and writes zeros to the rest of the second (the pad rows of its i
+        tile where it is the first or last chunk or j group)."""
+        (SK, SJ, _SI), (pk, pj, _pi) = self.shape, self.pad
+        out = []
+        for b in range(self.nblocks):
+            it, b = b % self.nit, b // self.nit
+            jg, ch = b % self.njg, b // self.njg
+            k0 = pk + ch * self.kch
+            k1 = min(k0 + self.kch, SK - pk)
+            j0 = pj + jg * self.tj
+            j1 = min(j0 + self.tj, SJ - pj)
+            i = (it * self.ti, (it + 1) * self.ti)
+            written = ((0 if ch == 0 else k0,
+                        SK if ch == self.nchunk - 1 else k1),
+                       (0 if jg == 0 else j0,
+                        SJ if jg == self.njg - 1 else j1), i)
+            out.append((((k0, k1), (j0, j1), i), written))
+        return out
+
+
+def dense_smem(nf: int, lo, hi, tj: int, ti: int, h: int, d: int) -> int:
+    """Dynamic shared memory of one K7 block, as ``csrc/dense_stencil.cu``
+    lays it out (``k7_smem_bytes``): per field a ring of ``lo[0] + hi[0] +
+    1 + d`` planes of ``tj + lo[1] + hi[1]`` rows of ``ti + 2h`` floats."""
+    return 4 * nf * (lo[0] + hi[0] + 1 + d) * (tj + lo[1] + hi[1]) \
+        * (ti + 2 * h)
+
+
+@lru_cache(maxsize=256)
+def _dense_stream(shape, pad, lo, hi, nf: int, ntaps: int, loads: float,
+                  budget: int = STREAM_SMEM_BUDGET) -> DenseStream:
+    """The footprint (k chunk, j rows, i lanes, planes ahead) of least
+    estimated cost, in K1's cost model (``codegen/pencil_kernel.py``): per
+    wave of blocks over :data:`SM_COUNT` SMs, the level-0 floats loaded,
+    the shared-memory accesses of the outputs and each block's steps and
+    start."""
+    (SK, SJ, SI), (pk, pj, _pi) = shape, pad
+    NK, NJ = SK - 2 * pk, SJ - 2 * pj
+    h = -(-max(lo[2], hi[2]) // 4) * 4
+    rk, rj = lo[0] + hi[0], lo[1] + hi[1]
+    chunks = sorted(c for c in {-(-NK // n) for n in range(1, NK + 1)}
+                    if c <= K7_MAX_KCH)
+    lookaheads = (2,) if ntaps < 40 else (2, 1)
+    # shared-memory accesses per output: its loads, a tap's address per
+    # quad of rows, its store
+    per_out = loads + 1 + ntaps / STREAM_ROWS
+    best = None
+    for ti in (t for t in range(32, SI + 1, 32) if SI % t == 0):
+        rw = ti + 2 * h
+        for tj in range(STREAM_ROWS, min(NJ, K7_MAX_TJ) + 1, STREAM_ROWS):
+            for kch in chunks:
+                work = (LOAD_COST * nf * (tj + rj) * rw * (kch + rk)
+                        + tj * ti * kch * per_out)
+                nblocks = -(-NK // kch) * -(-NJ // tj) * (SI // ti)
+                stall = (kch + rk) * STEP_COST + BLOCK_COST
+                for d in lookaheads:
+                    smem = dense_smem(nf, lo, hi, tj, ti, h, d)
+                    if smem > budget:
+                        continue
+                    bps = min(SM_SMEM // (smem + SM_BLOCK_RESERVE),
+                              SM_THREADS // STREAM_THREADS)
+                    waves = -(-nblocks // (SM_COUNT * bps))
+                    cost = (waves * (bps * work + stall), -d, -ti, kch)
+                    if best is None or cost < best[0]:
+                        best = (cost, (kch, tj, ti, d, smem))
+    if best is None:
+        raise ValueError(f"no K7 block of {nf} fields fits {budget} bytes "
+                         "of shared memory")
+    kch, tj, ti, d, smem = best[1]
+    return DenseStream(shape, pad, lo, hi, nf, kch, tj, ti, h, d, smem)
 
 
 def dense_stencil_plain(arrs: Sequence[torch.Tensor],
@@ -136,7 +274,15 @@ def dense_stencil_plain(arrs: Sequence[torch.Tensor],
 
 def dense_stencil_kernel(arrs: Sequence[torch.Tensor],
                          plan: DensePlan) -> torch.Tensor:
-    """Launch kernel K7 on CUDA tensors; returns a fresh padded array."""
+    """Launch kernel K7 on CUDA tensors, as :meth:`DensePlan.stream` plans
+    it; returns a fresh padded array."""
+    return launch_dense(arrs, plan, None)
+
+
+def launch_dense(arrs: Sequence[torch.Tensor], plan: DensePlan,
+                 sp: DenseStream | None) -> torch.Tensor:
+    """K7 at ``sp``'s footprint (``None``: the planner's), its shared
+    memory counted again from the footprint."""
     dev = arrs[0].device
     if dev.type != "cuda" or any(a.device != dev for a in arrs):
         raise ValueError("kernel K7 takes arrays on one CUDA device, got "
@@ -157,18 +303,23 @@ def dense_stencil_kernel(arrs: Sequence[torch.Tensor],
     if SK * SJ * SI >= 2 ** 31:
         raise ValueError("kernel K7 takes arrays of fewer than 2^31 "
                          "elements")
-    tk, smem = plan.tile_k()
+    if sp is None:
+        sp = plan.stream()
+    smem = dense_smem(len(arrs), plan.lo, plan.hi, sp.tj, sp.ti, sp.h, sp.d)
     f, dk, dj, di = (np.ascontiguousarray(a, np.int32) for a in
                      zip(*(k for k, _c in plan.taps)))
     c = np.asarray([c for _k, c in plan.taps], np.float32)
     ins = np.asarray([a.data_ptr() for a in arrs], np.int64)
+    # 16-byte pieces need 16-byte aligned inputs (a view may start anywhere)
+    pw = 4 if all(a.data_ptr() % 16 == 0 for a in arrs) else 1
     out = torch.empty_like(arrs[0])
     (klo, jlo, ilo), (khi, jhi, ihi) = plan.lo, plan.hi
     err = _build.library().bt_dense_stencil(
         ins.ctypes.data, out.data_ptr(), len(arrs), SK, SJ, SI, plan.pad[0],
-        plan.pad[1], klo, khi, jlo, jhi, ilo, ihi, tk, len(c),
-        f.ctypes.data, dk.ctypes.data, dj.ctypes.data, di.ctypes.data,
-        c.ctypes.data, smem, K7_THREADS, _build.stream_handle(dev))
+        plan.pad[1], klo, khi, jlo, jhi, ilo, ihi, sp.kch, sp.tj, sp.ti,
+        sp.h, pw, sp.d, len(c), f.ctypes.data, dk.ctypes.data,
+        dj.ctypes.data, di.ctypes.data, c.ctypes.data, smem,
+        STREAM_THREADS, _build.stream_handle(dev))
     _build.check(err, "dense_stencil")
     dense_stencil_kernel.launches += 1
     return out

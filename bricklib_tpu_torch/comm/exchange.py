@@ -6,8 +6,10 @@
   last axis (in stage order) is the stage's axis, corners forwarded out of
   ghosts an earlier stage wrote.  A stage on a mesh axis of one rank is a
   periodic self-copy inside each rank's storage, done by kernel K2
-  (``csrc/brick_copy.cu``), one launch per stage and card for all the
-  card's ranks; on a distributed axis each (stage, sign) copies each
+  (``csrc/brick_copy.cu``): each run of such stages is one launch per
+  card for all the card's ranks, its stages in order inside the launch
+  (a chunk pool with gates between stages); on a distributed axis each
+  (stage, sign) copies each
   rank's merged source intervals into the receiving rank's ghosts with
   ``Tensor.copy_``, the counterpart of ``lax.ppermute``.
 - PUT exchange (ref: BrickDecomp::exchange, brick-mpi.h:466-495): one
@@ -311,10 +313,25 @@ def check_copies(copies) -> None:
 
 # --- K2: interval copies inside one storage ------------------------------
 
+# threads of a K2 block (BT_POOL_THREADS in csrc/brick_copy.cu), and the
+# most 16-byte vectors a chunk moves: one round of the block's loads
+# (BT_POOL_DEEP a thread), 128 KiB
+POOL_THREADS = 512
+CHUNK_VECS = 16 * POOL_THREADS
+
+
 def copy_intervals_plain(dat: torch.Tensor, ivs) -> torch.Tensor:
-    """The plain PyTorch version of kernel K2: one stage, in place."""
+    """The plain PyTorch version of kernel K2 for one stage, in place."""
     for d0, d1, s0, s1 in ivs:
         dat[d0:d1].copy_(dat[s0:s1])
+    return dat
+
+
+def copy_stages_plain(dat: torch.Tensor, stage_ivs) -> torch.Tensor:
+    """The plain PyTorch version of kernel K2: the stages one after
+    another, in place."""
+    for ivs in stage_ivs:
+        copy_intervals_plain(dat, ivs)
     return dat
 
 
@@ -328,46 +345,139 @@ def _row_vecs(dat: torch.Tensor) -> int:
     return row_bytes // 16
 
 
-def interval_table(ivs, dat: torch.Tensor) -> torch.Tensor:
-    """The device table kernel K2 reads for one stage: ``(dst, src, len)``
-    per interval, in 16-byte vectors, int64, on the device of ``dat``."""
-    rv = _row_vecs(dat)
-    rows = [(d0 * rv, s0 * rv, (d1 - d0) * rv) for d0, d1, s0, s1 in ivs]
-    return torch.tensor(rows, dtype=torch.int64).to(dat.device)
+def check_intervals(stage_ivs, n: int) -> None:
+    """Every interval of every stage must lie inside ``n`` brick rows and
+    copy as many rows as it writes."""
+    for ivs in stage_ivs:
+        for d0, d1, s0, s1 in ivs:
+            if not (0 <= d0 < d1 <= n and 0 <= s0 < s1 <= n
+                    and d1 - d0 == s1 - s0):
+                raise ValueError(f"interval ({d0}, {d1}, {s0}, {s1}) "
+                                 f"invalid for {n} brick rows")
 
 
-def copy_intervals(dat: torch.Tensor, ivs, table: torch.Tensor | None = None
-                   ) -> torch.Tensor:
-    """One exchange stage, in place: ``dat[d0:d1] = dat[s0:s1]`` for every
-    interval.  A CPU tensor takes the plain version; a CUDA tensor
-    launches kernel K2 on the current stream (``table``: the stage's
-    :func:`interval_table`, built here when not given)."""
+class PoolPlan:
+    """Kernel K2's launch for one group of consecutive local stages on one
+    storage: the stages' copies cut into chunks of one brick row, in stage
+    order (``chunks``: ``(dst row, src row, stage, arrival counter or -1,
+    gates)``; on the device a row longer than :data:`CHUNK_VECS` is cut
+    again), the arrival counters (one per row a stage writes and a later
+    stage reads: ``counters``, ``(stage, row)``) and the device tables;
+    ``nrows`` and ``row_vecs`` describe the storage it was checked for;
+    ``storage`` (its shape, type and device) is given where the plan is
+    launched, which makes the device tables there."""
+
+    def __init__(self, stage_ivs, nrows: int, row_vecs: int, storage=None,
+                 nblocks: int | None = None):
+        self.stage_ivs = [list(ivs) for ivs in stage_ivs]
+        self.nrows, self.row_vecs = int(nrows), int(row_vecs)
+        check_intervals(self.stage_ivs, self.nrows)
+        # per stage the rows it writes and reads; a later stage may read
+        # what an earlier one wrote (a gate), never write what it read or
+        # wrote
+        wrote: list[set] = []
+        for s, ivs in enumerate(self.stage_ivs):
+            check_stage([(d0, d1) for d0, d1, _, _ in ivs],
+                        [(s0, s1) for _, _, s0, s1 in ivs])
+            w = {r for d0, d1, _, _ in ivs for r in range(d0, d1)}
+            for e in range(s):
+                read = {r for _, _, s0, s1 in self.stage_ivs[e]
+                        for r in range(s0, s1)}
+                clash = w & (wrote[e] | read)
+                if clash:
+                    raise ValueError(
+                        f"stage {s} writes row {min(clash)}, which stage {e} "
+                        "of the same launch reads or writes")
+            wrote.append(w)
+        # the gates: per chunk the earlier stages that wrote its source row
+        counter_of: dict = {}
+        chunks = []
+        for s, ivs in enumerate(self.stage_ivs):
+            for d0, d1, s0, _s1 in ivs:
+                for r in range(d1 - d0):
+                    gates = tuple(counter_of.setdefault((e, s0 + r),
+                                                        len(counter_of))
+                                  for e in range(s) if s0 + r in wrote[e])
+                    chunks.append((d0 + r, s0 + r, s, gates))
+        self.counters = sorted(counter_of, key=counter_of.get)
+        self.chunks = [(d, src, st, counter_of.get((st, d), -1), gates)
+                       for d, src, st, gates in chunks]
+        self.storage, self.nblocks = storage, nblocks
+        if storage is not None:
+            self._tables(storage[2])
+
+    def _tables(self, dev) -> None:
+        """The device tables (per chunk its records in 16-byte vectors: a
+        brick row longer than :data:`CHUNK_VECS` is cut into ``pieces``,
+        each drawn as a chunk of its own, and each adding to its row's
+        arrival counter; the gate list) and the ticket and arrival
+        counters, zero."""
+        rv, recs, gates = self.row_vecs, [], []
+        self.pieces = -(-rv // CHUNK_VECS)
+        for dst, src, _s, counter, gs in self.chunks:
+            for o in range(0, rv, CHUNK_VECS):
+                recs.append((dst * rv + o, src * rv + o, min(CHUNK_VECS,
+                                                             rv - o),
+                             counter, len(gates), len(gates) + len(gs)))
+            gates.extend(gs)
+        self.chunk_table = torch.tensor(recs, dtype=torch.int64).to(dev)
+        self.gate_table = torch.tensor(gates or [0], dtype=torch.int32).to(dev)
+        self.state = torch.zeros(1 + len(self.counters), dtype=torch.int64,
+                                 device=dev)
+        self.nblocks = min(self.nblocks or len(recs), len(recs))
+
+    def fits(self, dat: torch.Tensor) -> bool:
+        """Whether the plan was checked for storage like ``dat``."""
+        return (dat.shape, dat.dtype, dat.device) == self.storage
+
+
+def pool_plan(stage_ivs, dat: torch.Tensor) -> PoolPlan:
+    """Kernel K2's launch for ``stage_ivs`` on ``dat``, a CUDA tensor:
+    checked once here (intervals inside the storage, no overlap within a
+    stage, no later stage writing what an earlier one reads or writes),
+    the device tables made on ``dat``'s card, one block per SM."""
+    sms = torch.cuda.get_device_properties(dat.device).multi_processor_count
+    return PoolPlan(stage_ivs, dat.shape[0], _row_vecs(dat),
+                    (dat.shape, dat.dtype, dat.device), sms)
+
+
+def copy_stages(dat: torch.Tensor, stage_ivs, plan: PoolPlan | None = None
+                ) -> torch.Tensor:
+    """Consecutive exchange stages, in place and in order: ``dat[d0:d1] =
+    dat[s0:s1]`` for every interval of each stage, a stage reading what
+    the earlier ones wrote.  A CPU tensor takes the plain version; a CUDA
+    tensor launches kernel K2 once on the current stream (``plan``: the
+    stages' :func:`pool_plan` for this storage, made here when not
+    given).  ``copy_intervals.launches`` counts K2's launches."""
     if not dat.is_contiguous():
         raise ValueError("exchange storage must be contiguous")
-    n = dat.shape[0]
-    for d0, d1, s0, s1 in ivs:
-        if not (0 <= d0 < d1 <= n and 0 <= s0 < s1 <= n
-                and d1 - d0 == s1 - s0):
-            raise ValueError(f"interval ({d0}, {d1}, {s0}, {s1}) invalid "
-                             f"for {n} brick rows")
     if dat.device.type == "cpu":
-        return copy_intervals_plain(dat, ivs)
+        check_intervals(stage_ivs, dat.shape[0])
+        return copy_stages_plain(dat, stage_ivs)
     if dat.device.type != "cuda":
         raise ValueError(f"kernel K2 runs on CUDA tensors, got {dat.device}")
-    if table is None:
-        table = interval_table(ivs, dat)
-    if (table.device != dat.device or table.dtype != torch.int64
-            or tuple(table.shape) != (len(ivs), 3)):
-        raise ValueError("interval table must be int64 [n, 3] on the "
-                         "storage's device")
-    rv = _row_vecs(dat)
-    max_len = max(d1 - d0 for d0, d1, _s0, _s1 in ivs) * rv
-    err = _build.library().bt_copy_intervals(
-        dat.data_ptr(), table.data_ptr(), len(ivs), max_len,
+    if plan is None:
+        plan = pool_plan(stage_ivs, dat)
+    elif not plan.fits(dat):
+        raise ValueError("the K2 plan was made for other storage")
+    if not plan.chunks:
+        return dat
+    err = _build.library().bt_copy_pool(
+        dat.data_ptr(), plan.chunk_table.data_ptr(),
+        plan.chunk_table.shape[0], plan.gate_table.data_ptr(), plan.pieces,
+        plan.state.data_ptr(), plan.nblocks, POOL_THREADS,
         _build.stream_handle(dat.device))
-    _build.check(err, "copy_intervals")
+    _build.check(err, "copy_pool")
     copy_intervals.launches += 1
     return dat
+
+
+def copy_intervals(dat: torch.Tensor, ivs, table: PoolPlan | None = None
+                   ) -> torch.Tensor:
+    """One exchange stage, in place: ``dat[d0:d1] = dat[s0:s1]`` for every
+    interval; :func:`copy_stages` of the one stage (``table``: its
+    :func:`pool_plan`, made here when not given)."""
+    return copy_stages(dat, [ivs], table)
 
 
 copy_intervals.launches = 0
@@ -443,41 +553,59 @@ def copy_between_ranks(mesh: Mesh, flats, copies, rows: int) -> None:
 
 
 def _k2_per_card(flats, per_card, tables, key) -> None:
-    """One K2 launch per card with intervals (its device table made on the
-    first call)."""
-    for c, ivs in enumerate(per_card):
-        if not ivs:
+    """One K2 launch per card with copies (``per_card[c]``: its stages'
+    intervals), its plan made on the first call."""
+    for c, stage_ivs in enumerate(per_card):
+        if not any(stage_ivs):
             continue
         with on_card(flats[c].device):
-            if flats[c].device.type == "cuda" and (key, c) not in tables:
-                tables[key, c] = interval_table(ivs, flats[c])
-            copy_intervals(flats[c], ivs, tables.get((key, c)))
+            plan = tables.get((key, c))
+            if plan is None and flats[c].device.type == "cuda":
+                plan = tables[key, c] = pool_plan(stage_ivs, flats[c])
+            copy_stages(flats[c], stage_ivs, plan)
+
+
+def stage_groups(stages) -> list[list[int]]:
+    """The stages in launch order, each run of consecutive local stages
+    one group (one K2 launch per card, the TPU kernel's ``flush_local``),
+    each remote stage a group of its own."""
+    groups: list[list[int]] = []
+    for s, st in enumerate(stages):
+        if st.remote or not groups or stages[groups[-1][0]].remote:
+            groups.append([s])
+        else:
+            groups[-1].append(s)
+    return groups
 
 
 def shift_exchange(decomp: BrickDecomp, mesh, table_axes=(),
                    axis_order=None):
     """Plan the SHIFT exchange once; returns ``fn(state) -> state`` that
-    runs it in place: per stage, on a one-rank axis one K2 launch per card
-    for all its ranks, on a distributed axis one ``Tensor.copy_`` per rank
-    and interval (``exchange_shift``, ``bricklib_tpu/comm/exchange.py:
-    193-257``).  Device tables are made on the first call, so a timed step
-    copies nothing from the host.  ``fn.stages``: the plan."""
+    runs it in place: each run of consecutive stages on one-rank axes as
+    one K2 launch per card for all its ranks, each stage on a distributed
+    axis as one ``Tensor.copy_`` per rank and interval (``exchange_shift``,
+    ``bricklib_tpu/comm/exchange.py:193-257``).  Device tables are made on
+    the first call, so a timed step copies nothing from the host.
+    ``fn.stages``: the plan; ``fn.groups``: the stages of each launch."""
     shape = mesh.shape if isinstance(mesh, Mesh) else tuple(mesh)
     stages = shift_stages(decomp, shape, table_axes, axis_order)
     copies = [stage_copies(st, shape) for st in stages]
+    groups = stage_groups(stages)
     nb = decomp.nbricks
 
     def run(m, flats, tables):
-        for s, st in enumerate(stages):
-            if st.remote:
-                copy_between_ranks(m, flats, copies[s], nb)
+        for g, ss in enumerate(groups):
+            if stages[ss[0]].remote:
+                copy_between_ranks(m, flats, copies[ss[0]], nb)
                 continue
-            if ("ivs", s) not in tables:
-                tables["ivs", s] = card_intervals(m, copies[s], nb)
-            _k2_per_card(flats, tables["ivs", s], tables, s)
+            if ("ivs", g) not in tables:
+                per = [card_intervals(m, copies[s], nb) for s in ss]
+                tables["ivs", g] = [[p[c] for p in per]
+                                    for c in range(len(m.cards))]
+            _k2_per_card(flats, tables["ivs", g], tables, g)
 
     fn = mesh_fn(run, mesh, (nb,))
-    fn.stages = stages
+    fn.stages, fn.groups = stages, groups
     return fn
 
 
@@ -506,7 +634,7 @@ def put_exchange(decomp: BrickDecomp, mesh, table_axes=()):
     def run(m, flats, tables):
         copy_between_ranks(m, flats, remote, nb)
         if "ivs" not in tables:
-            tables["ivs"] = card_intervals(m, local, nb)
+            tables["ivs"] = [[ivs] for ivs in card_intervals(m, local, nb)]
         _k2_per_card(flats, tables["ivs"], tables, 0)
 
     fn = mesh_fn(run, mesh, (nb,))

@@ -26,10 +26,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    both edges, its compiled layout and its generic body) and at 512^3
    (mpi125pt on periodic and ghost-inclusive ranges, mpi25pt through the
    generic body), and against K1 at fuse=1 on the same table, K7 (dense
-   padded-array stencil) on small arrays and on one 147-row slab of the
-   1024^3 out-of-core pass, all at
+   padded-array stencil, k-streaming blocks) on small arrays through its
+   generic body and its compiled star and on the first (147-row) and the
+   last (142-row) slab of the 1024^3 out-of-core pass, all at
    abs-or-rel 1e-5 (FMA contraction and summation order); K2 (exchange
-   interval copies), K3 (storage copy), K5 (strong exchange stage, on
+   interval copies, every local stage of an exchange in one launch), K3
+   (storage copy), K5 (strong exchange stage, on
    every (stage, sign) of the full strong plan), K9 and K10 (the
    remote-copy exchanges, on every stage of the full weak mesh plan with
    four ranks and the strong mesh plan with two, on cuda:0, and across
@@ -121,6 +123,7 @@ ST125, STEPS125 = 8, 10
 # default slab_bytes (2 GiB): 7 slabs of 147 rows
 N_OOC, OOC_ITERS, OOC_SLABS, OOC_SLAB_BYTES = 1024, 2, 7, 2 * 2 ** 30
 OOC_SLAB, OOC_PADS = (149, 1040, 1152), (1, 8, 64)   # the first slab, padded
+OOC_LAST = (144, 1040, 1152)                         # the last, shorter one
 # the mesh paths: the weak step at 512^3 per rank on mesh (2, 2, 1), four
 # ranks on one card (the k and j stages cross ranks), and the strong step
 # at 512^3 on mesh (2, 1, 1), two ranks of 8 subdomains on one card
@@ -299,7 +302,8 @@ def phase_kernels(sizes=(32, N_BIG)) -> dict:
             same = torch.equal(a, b)
             moved = sum(d1 - d0 for st in ex.stages for d0, d1, _, _ in st)
             print(f"[3 K2 {n}^3 table_axes={table_axes}] "
-                  f"{len(ex.stages)} stages, {moved} brick rows, "
+                  f"{len(ex.stages)} stages in {len(ex.groups)} launch, "
+                  f"{moved} brick rows, "
                   f"{'bit-exact' if same else 'MISMATCH'}")
             if not same:
                 fail(f"K2 {n}^3 disagrees with its plain version")
@@ -956,8 +960,10 @@ def phase_kernels_mxu(err: dict) -> None:
 
 def phase_kernels_dense(err: dict) -> None:
     """K7 against its plain version over the whole padded array: small
-    arrays (radius 2, the 27-point box, a padded row of two i tiles) and
-    one slab of the out-of-core pass."""
+    arrays through the generic body (radius 2, the 27-point box) and the
+    compiled star (a padded row of two i tiles, mpi7pt on a slab of one
+    output row), and the first and the last slab of the out-of-core
+    pass."""
     import torch
 
     from bricklib_tpu_torch.codegen.dense_kernel import (dense_stencil,
@@ -967,7 +973,9 @@ def phase_kernels_dense(err: dict) -> None:
     for name, shape, pad in (("mpi13pt", (24, 32, 128), (4, 8, 48)),
                              ("s27pt", (10, 24, 128), (1, 8, 40)),
                              ("s7pt", (11, 24, 256), (1, 8, 64)),
-                             ("s7pt", OOC_SLAB, OOC_PADS)):
+                             ("mpi7pt", (3, 24, 128), (1, 8, 64)),
+                             ("s7pt", OOC_SLAB, OOC_PADS),
+                             ("s7pt", OOC_LAST, OOC_PADS)):
         fn = dense_stencil(name, shape, pad, bench_params())
         x = rand_cuda(shape, 15)
         got = fn(x)
@@ -975,9 +983,11 @@ def phase_kernels_dense(err: dict) -> None:
         torch.cuda.synchronize()
         ok, e = close(got, want, K1_TOL)
         err["K7"] = max(err.get("K7", 0.0), e)
-        tk, smem = fn.plan.tile_k()
-        print(f"[3 K7 {name} {shape} pad {pad} tile k {tk} {smem} B] max abs "
-              f"err {e:.3e} (abs-or-rel {K1_TOL:g}) "
+        sp = fn.plan.stream()
+        print(f"[3 K7 {name} {shape} pad {pad}] body "
+              f"{fn.plan.layout() or 'generic'}, blocks of {sp.kch} k x "
+              f"{sp.tj} j x {sp.ti} i rows ({sp.nblocks}, {sp.smem_bytes} "
+              f"B): max abs err {e:.3e} (abs-or-rel {K1_TOL:g}) "
               f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"K7 {name} {shape} disagrees with its plain version")
@@ -1040,8 +1050,9 @@ def phase_paths(card: str) -> dict:
     from bricklib_tpu_torch.comm.exchange import shift_stages
     from bricklib_tpu_torch.drivers import strong, weak
 
-    # K2 launches once per exchange stage; the i axis goes through the table
-    n3, n4 = (len(shift_stages(dec, (1,) * nd, (nd - 1,)))
+    # K2 launches once per exchange (its stages are one group of local
+    # stages); the i axis goes through the table
+    n3, n4 = (local_groups(shift_stages(dec, (1,) * nd, (nd - 1,)))
               for dec, nd in ((decomposition(N_BIG), 3),
                               (decomposition_4d(DIMS4, BD4), 4)))
     paths = [
@@ -2131,16 +2142,24 @@ def report_nd(card: str, name: str, res: dict) -> None:
           f"{res['gstencil_s']:.3f} GStencil/s")
 
 
+def local_groups(stages) -> int:
+    """K2 launches per SHIFT exchange with every rank on one card: one per
+    run of consecutive stages on axes of one rank."""
+    from bricklib_tpu_torch.comm.exchange import stage_groups
+
+    return sum(not stages[g[0]].remote for g in stage_groups(stages))
+
+
 def oracle_k2(dims, bd, mesh) -> int:
-    """K2 launches per oracle exchange with every rank on one card: one
-    per SHIFT stage on an axis of one rank (whole-brick ghosts)."""
+    """K2 launches per oracle exchange with every rank on one card
+    (whole-brick ghosts): :func:`local_groups`."""
     from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
     from bricklib_tpu_torch.comm.exchange import shift_stages
 
     nd = len(dims)
     dec = BrickDecomp(dims=dims, ghost_depth=bd, bdims=bd).initialize(
         skinlist_by_name("good", nd))
-    return sum(not st.remote for st in shift_stages(dec, mesh))
+    return local_groups(shift_stages(dec, mesh))
 
 
 def weak_oracle(dims, mesh=None, overlap=False) -> dict:

@@ -20,6 +20,8 @@ bit, and its plain version at abs-or-rel 1e-5 (bit for bit on the
 exchanged storage), on four ranks of one card and across two cards.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,8 @@ from bricklib_tpu_torch.codegen.fused_exchange import (
     brick_rows, fusedx_plain, pencil_sweep_fusedx, pencil_sweep_fusedx_kernel)
 from bricklib_tpu_torch.codegen.dense_kernel import (dense_stencil,
                                                      dense_stencil_kernel,
-                                                     dense_stencil_plain)
+                                                     dense_stencil_plain,
+                                                     launch_dense)
 from bricklib_tpu_torch.codegen.mxu_kernel import (launch_mxu,
                                                    mxu_footprint,
                                                    pencil_sweep_mxu,
@@ -53,9 +56,11 @@ from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
 from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu_torch.comm.exchange import (copy_intervals,
                                               copy_intervals_plain,
-                                              copy_rows_plain, put_exchange,
-                                              put_plan, remote_copy,
-                                              rows_table, shift_exchange,
+                                              copy_rows_plain, copy_stages,
+                                              copy_stages_plain, pool_plan,
+                                              put_exchange, put_plan,
+                                              remote_copy, rows_table,
+                                              shift_exchange,
                                               shift_remote_exchange)
 from bricklib_tpu_torch.comm.mesh import make_domain_mesh, rank_views
 from bricklib_tpu_torch.comm.strong import (StrongDecomp, stage_copy,
@@ -128,7 +133,9 @@ def test_exchange_kernel_matches_plain(cuda, table_axes):
     ex = shift_exchange(dec, (1, 1, 1), table_axes)
     before = copy_intervals.launches
     ex(a)
-    assert copy_intervals.launches == before + len(ex.stages)
+    # every stage is local: one group, one launch for all of them
+    assert len(ex.groups) == 1
+    assert copy_intervals.launches == before + 1
     for ivs in ex.stages:
         copy_intervals_plain(b, ivs)
     assert torch.equal(a, b)
@@ -498,6 +505,55 @@ def test_dense_kernel_matches_plain(cuda, name, shape, pad):
     assert dense_stencil_kernel.launches == before + 1
     want = dense_stencil_plain(arrs, fn.plan)
     assert compare_arrays(got.cpu().numpy(), want.cpu().numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("name,shape,pad,foot", [
+    # (k chunk, j rows, i lanes, planes ahead) of the streaming blocks
+    ("s7pt", (14, 40, 256), (1, 8, 64), (4, 8, 64, 2)),
+    ("s7pt", (14, 40, 256), (1, 8, 64), (12, 24, 256, 1)),
+    ("s7pt", (14, 40, 128), (1, 8, 64), (5, 4, 128, 2)),    # one i tile
+    ("mpi7pt", (3, 24, 128), (1, 8, 64), (1, 8, 32, 2)),    # NK < ring
+    ("mpi13pt", (24, 32, 128), (4, 8, 48), (3, 12, 32, 1)),
+    ("mpi13pt", (24, 32, 128), (4, 8, 48), (16, 16, 128, 2)),
+    ("two", (12, 24, 128), (2, 8, 48), (2, 4, 64, 2)),
+    ("s27pt", (10, 24, 128), (1, 8, 40), (3, 8, 128, 1))])
+def test_dense_kernel_footprints(cuda, name, shape, pad, foot):
+    """K7's streaming body (the compiled star for s7pt and mpi7pt, the
+    generic body otherwise) at footprints other than the planner's."""
+    sd = two_inputs_3d(st) if name == "two" else stencil_by_name(name)[0]
+    fn = dense_stencil(sd, shape, pad, bench_params())
+    kch, tj, ti, d = foot
+    sp = dataclasses.replace(fn.plan.stream(), kch=kch, tj=tj, ti=ti, d=d)
+    arrs = [torch.from_numpy(random_array(shape, np.float32, 9 + f)).to(cuda)
+            for f in range(len(fn.plan.fields))]
+    got = launch_dense(arrs, fn.plan, sp)
+    want = dense_stencil_plain(arrs, fn.plan)
+    assert compare_arrays(got.cpu().numpy(), want.cpu().numpy(), 1e-5)
+    assert torch.equal(got, fn(*arrs))   # the same sums at any footprint
+
+
+def test_exchange_pool_epochs_and_interleaved_plans(cuda):
+    """K2 run again on one plan (its counters carry on from launch to
+    launch) and two plans on one storage in turns, bit for bit against
+    the plain version."""
+    dec = BrickDecomp(dims=(16, 16, 32), ghost_depth=(4, 4, 8),
+                      bdims=(4, 4, 8)).initialize(
+        skinlist_by_name("good", 3))
+    ex = shift_exchange(dec, (1, 1, 1))
+    assert len(ex.stages) == 3 and len(ex.groups) == 1
+    a = random_storage(dec, seed=21, device=cuda)
+    b = a.clone()
+    both = pool_plan(ex.stages, a)
+    first = pool_plan(ex.stages[:1], a)
+    before = copy_intervals.launches
+    for _ in range(3):
+        copy_stages(a, ex.stages, both)
+        copy_stages(a, ex.stages[:1], first)
+        copy_stages_plain(b, ex.stages)
+        copy_stages_plain(b, ex.stages[:1])
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+    assert copy_intervals.launches == before + 6
 
 
 def test_dense_kernel_refuses_nonlinear_stencils(cuda):

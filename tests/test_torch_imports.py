@@ -206,9 +206,9 @@ def test_source_digest_covers_the_headers(monkeypatch, tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert (csrc / "copy_async.cuh").exists()
+    assert (csrc / "tap_layouts.cuh").exists()
     before = _build.source_digest()
-    with open(csrc / "copy_async.cuh", "a") as f:
+    with open(csrc / "tap_layouts.cuh", "a") as f:
         f.write("\n")
     assert _build.source_digest() != before
 
