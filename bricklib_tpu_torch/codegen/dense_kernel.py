@@ -35,7 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..core import not_ported
 from .evaluate import TorchNS, resolve_const_from_params
 from .jnp_backend import _np_offsets, _run
@@ -379,14 +379,17 @@ def dense_stencil(stencil, shape: Sequence[int],
         hi=tuple(int(v) for v in hi), fields=fieldnames, ir=ir,
         params=params, taps=fold_linear_forms(ir, fieldnames, params))
 
+    args = trace.sweep_args("K7")
+
     def run(arrs):
         for a in arrs:
             if tuple(a.shape) != shape:
                 raise ValueError(f"array shape {tuple(a.shape)} is not "
                                  f"{shape}")
-        if arrs[0].device.type == "cpu":
-            return dense_stencil_plain(arrs, plan)
-        return dense_stencil_kernel(arrs, plan)
+        with trace.span(trace.SWEEP, args):
+            if arrs[0].device.type == "cpu":
+                return dense_stencil_plain(arrs, plan)
+            return dense_stencil_kernel(arrs, plan)
 
     if NF > 1:
         def fn(*arrs):

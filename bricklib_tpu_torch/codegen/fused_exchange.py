@@ -38,10 +38,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..comm.exchange import (MAX_CARDS, _one_rank_shape, _wait, check_rows,
                              copy_rows_plain, event_plan, on_card,
-                             put_plan_copies)
+                             put_plan_copies, written_rows)
 from ..comm.mesh import Mesh, check_state, domain_axis_names
 from ..core import not_ported
 from .pencil_kernel import (FEATURES_ITEM, STREAM_THREADS, StreamPlan,
@@ -345,6 +345,9 @@ def pencil_sweep_fusedx(stencil, grid: np.ndarray,
                          f"{int(np.prod(mesh_shape))}")
     rank_shape = (nb,) + tuple(int(b) for b in bdims)
     built: dict = {}
+    args = trace.sweep_args("K11", 1, sweep.ranges, exchange="fused")
+    # the ghost bytes one call writes: the PUT copies' rows, f32 bricks
+    nbytes = written_rows(copies) * 4 * int(np.prod(bdims))
 
     def plan_for(m: Mesh) -> dict:
         """The mesh's gating plan, event plan and rows, made once."""
@@ -357,6 +360,11 @@ def pencil_sweep_fusedx(stencil, grid: np.ndarray,
         return built[m]
 
     def run(m: Mesh, state):
+        with trace.span(trace.SWEEP, args):
+            trace.count("exchange_bytes", nbytes)
+            return _run(m, state)
+
+    def _run(m: Mesh, state):
         check_state(m, state, rank_shape)
         flats = [t.view((-1,) + rank_shape[1:]) for t in state]
         b = plan_for(m)

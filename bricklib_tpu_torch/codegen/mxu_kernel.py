@@ -39,7 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..core import not_ported
 from .evaluate import resolve_const_from_params
 from .ir import fold_linear
@@ -606,6 +606,7 @@ def pencil_sweep_mxu(stencil, grid: np.ndarray,
     check_table(plan, nbricks)
     shape = (int(nbricks), BK, BJ * BI)
     tables: dict = {}
+    args = trace.sweep_args("K8", 1, plan.ranges)
 
     def fn(flat_view: torch.Tensor) -> torch.Tensor:
         if tuple(flat_view.shape) != shape:
@@ -614,9 +615,10 @@ def pencil_sweep_mxu(stencil, grid: np.ndarray,
         dev = flat_view.device
         if dev not in tables:
             tables[dev] = torch.from_numpy(plan.table).to(dev)
-        if dev.type == "cpu":
-            return pencil_sweep_mxu_plain(flat_view, tables[dev], plan)
-        return pencil_sweep_mxu_kernel(flat_view, tables[dev], plan)
+        with trace.span(trace.SWEEP, args):
+            if dev.type == "cpu":
+                return pencil_sweep_mxu_plain(flat_view, tables[dev], plan)
+            return pencil_sweep_mxu_kernel(flat_view, tables[dev], plan)
 
     fn.plan = plan
     fn.n_wprofiles = len(wdefs)

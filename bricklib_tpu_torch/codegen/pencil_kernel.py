@@ -39,7 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..core import not_ported
 from .evaluate import TorchNS, evaluate, resolve_const_from_params
 from .ir import StencilIR
@@ -650,13 +650,15 @@ def check_table(plan: SweepPlan, nbricks: int) -> None:
                          "bricks")
 
 
-def sweep_fn(plan: SweepPlan, nbricks: int, kernel):
+def sweep_fn(plan: SweepPlan, nbricks: int, kernel, name: str = "K1"):
     """``fn(dat_view) -> out_view`` for a plan: the plain version for a
     CPU tensor, ``kernel`` for a CUDA one.  The device table is made once
-    per device."""
+    per device.  Each call is a ``bricklib.sweep`` span (``name``: the
+    kernel's)."""
     check_table(plan, nbricks)
     shape = (int(nbricks),) + tuple(plan.bdims)
     tables: dict = {}
+    args = trace.sweep_args(name, plan.fuse, plan.ranges)
 
     def fn(dat_view: torch.Tensor) -> torch.Tensor:
         if tuple(dat_view.shape) != shape:
@@ -665,9 +667,10 @@ def sweep_fn(plan: SweepPlan, nbricks: int, kernel):
         dev = dat_view.device
         if dev not in tables:
             tables[dev] = torch.from_numpy(plan.table).to(dev)
-        if dev.type == "cpu":
-            return pencil_sweep_plain(dat_view, tables[dev], plan)
-        return kernel(dat_view, tables[dev], plan)
+        with trace.span(trace.SWEEP, args):
+            if dev.type == "cpu":
+                return pencil_sweep_plain(dat_view, tables[dev], plan)
+            return kernel(dat_view, tables[dev], plan)
 
     fn.plan = plan
     return fn

@@ -38,7 +38,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..core import not_ported
 from .evaluate import TorchNS, evaluate, resolve_const_from_params
 from .pencil_kernel import FEATURES_ITEM, _is_f32
@@ -676,6 +676,7 @@ def pencil_sweep_2d(stencil, grid: np.ndarray,
                          f"outside {int(nbricks)} bricks")
     shape = (int(nbricks), BY, X)
     tables: dict = {}
+    args = trace.sweep_args("K6", F, (plan.y_range,))
 
     def fn(*views):
         if len(views) != NF:
@@ -690,7 +691,8 @@ def pencil_sweep_2d(stencil, grid: np.ndarray,
             tables[dev] = torch.from_numpy(plan.table).to(dev)
         run = (pencil_sweep_2d_plain if dev.type == "cpu"
                else pencil_sweep_2d_kernel)
-        outs = run(views, tables[dev], plan)
+        with trace.span(trace.SWEEP, args):
+            outs = run(views, tables[dev], plan)
         return tuple(outs) if NO > 1 else outs[0]
 
     fn.plan = plan

@@ -417,4 +417,4 @@ def pencil_sweep_4d(stencil, grid: np.ndarray,
               else None),
         ir=ir, params=dict(params or {}), batch=batch,
         batch_stride=int(batch_stride) if batch > 1 else 0)
-    return sweep_fn(plan, nbricks, pencil_sweep_4d_kernel)
+    return sweep_fn(plan, nbricks, pencil_sweep_4d_kernel, "K4")

@@ -42,7 +42,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..core import not_ported
 from .pencil_kernel import (BLOCK_COST, FEATURES_ITEM, LOAD_COST,
                             PLANE_SPAN, SM_BLOCK_RESERVE, SM_COUNT, SM_SMEM,
@@ -558,6 +558,7 @@ def pencil_sweep_nd(stencil, grid: np.ndarray,
     check_table(plan, nbricks)
     shape = (int(nbricks),) + bdims
     per_dev: dict = {}
+    args = trace.sweep_args("K12", 1, plan.ranges)
 
     def run(*views):
         if len(views) != len(fieldnames):
@@ -570,14 +571,15 @@ def pencil_sweep_nd(stencil, grid: np.ndarray,
         dev = views[0].device
         if dev not in per_dev:
             per_dev[dev] = torch.from_numpy(plan.table).to(dev)
-        if dev.type == "cpu":
-            return pencil_sweep_plain(list(views), per_dev[dev], plan)
-        if (dev, "info") not in per_dev:
+        if dev.type != "cpu" and (dev, "info") not in per_dev:
             k12_args(plan)
             per_dev[dev, "info"] = torch.from_numpy(
                 nd_info(plan, stream_plan_nd(plan))[0]).to(dev)
-        return pencil_sweep_nd_kernel(list(views), per_dev[dev],
-                                      per_dev[dev, "info"], plan)
+        with trace.span(trace.SWEEP, args):
+            if dev.type == "cpu":
+                return pencil_sweep_plain(list(views), per_dev[dev], plan)
+            return pencil_sweep_nd_kernel(list(views), per_dev[dev],
+                                          per_dev[dev, "info"], plan)
 
     if multi:
         fn = run

@@ -36,11 +36,12 @@ from __future__ import annotations
 import bisect
 import contextlib
 import ctypes
+import math
 
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from .decomp import BrickDecomp
 from .mesh import Mesh, check_state, domain_axis_names
 
@@ -491,19 +492,33 @@ def _flat(t: torch.Tensor, lead: int) -> torch.Tensor:
     return t.view((-1,) + tuple(t.shape[lead:]))
 
 
-def mesh_fn(run, mesh, rank_shape, lead: int = 2):
+def mesh_fn(run, mesh, rank_shape, lead: int = 2, *, ghost_rows: int):
     """``fn(state) -> state`` over a :class:`Mesh`, running ``run(mesh,
     flats, tables)`` on the state's flat brick rows in place (``tables``:
     a dict kept across calls for device tables).  Given a mesh shape whose
     every axis has one rank instead, ``fn(dat) -> dat`` over one tensor
     (the one-rank state on its device).  ``rank_shape``: the leading shape
-    of one rank's storage, ``lead`` axes with the rank axis."""
+    of one rank's storage, ``lead`` axes with the rank axis.
+
+    Every exchange enters here: each call is a ``bricklib.exchange`` span
+    and adds the ghost bytes it writes to the ``exchange_bytes`` counter
+    (``ghost_rows``: the brick rows one call writes over every rank, each
+    once, :func:`written_rows`; times the row size, reckoned on the first
+    call)."""
     if isinstance(mesh, Mesh):
         tables: dict = {}
+        nbytes = None
 
         def fn(state):
-            check_state(mesh, state, rank_shape)
-            run(mesh, [_flat(t, lead) for t in state], tables)
+            nonlocal nbytes
+            with trace.span(trace.EXCHANGE):
+                check_state(mesh, state, rank_shape)
+                flats = [_flat(t, lead) for t in state]
+                if nbytes is None:
+                    nbytes = ghost_rows * math.prod(
+                        flats[0].shape[1:]) * flats[0].element_size()
+                trace.count("exchange_bytes", nbytes)
+                run(mesh, flats, tables)
             return state
 
         return fn
@@ -514,11 +529,27 @@ def mesh_fn(run, mesh, rank_shape, lead: int = 2):
         if dat.device not in per_dev:
             per_dev[dat.device] = mesh_fn(
                 run, Mesh(shape, domain_axis_names(len(shape)), [dat.device]),
-                rank_shape, lead)
+                rank_shape, lead, ghost_rows=ghost_rows)
         per_dev[dat.device]([dat.unsqueeze(0)])
         return dat
 
     return one
+
+
+def written_rows(copies) -> int:
+    """The brick rows that ``copies`` (``(dst_rank, d0, d1, ...)``) write,
+    each (rank, row) counted once."""
+    by_rank: dict = {}
+    for r, d0, d1, *_ in copies:
+        by_rank.setdefault(r, []).append((d0, d1))
+    n = 0
+    for ivs in by_rank.values():
+        end = 0
+        for d0, d1 in sorted(ivs):
+            if d1 > end:
+                n += d1 - max(d0, end)
+                end = d1
+    return n
 
 
 def _one_rank_shape(mesh_shape) -> tuple[int, ...]:
@@ -550,6 +581,7 @@ def copy_between_ranks(mesh: Mesh, flats, copies, rows: int) -> None:
         (c, slot), (cq, sq) = mesh.place(r), mesh.place(q)
         flats[c][slot * rows + d0:slot * rows + d1].copy_(
             flats[cq][sq * rows + s0:sq * rows + s1])
+    trace.count("rank_copies", len(copies))
 
 
 def _k2_per_card(flats, per_card, tables, key) -> None:
@@ -604,7 +636,8 @@ def shift_exchange(decomp: BrickDecomp, mesh, table_axes=(),
                                     for c in range(len(m.cards))]
             _k2_per_card(flats, tables["ivs", g], tables, g)
 
-    fn = mesh_fn(run, mesh, (nb,))
+    fn = mesh_fn(run, mesh, (nb,),
+                 ghost_rows=written_rows([c for cs in copies for c in cs]))
     fn.stages, fn.groups = stages, groups
     return fn
 
@@ -637,7 +670,7 @@ def put_exchange(decomp: BrickDecomp, mesh, table_axes=()):
             tables["ivs"] = [[ivs] for ivs in card_intervals(m, local, nb)]
         _k2_per_card(flats, tables["ivs"], tables, 0)
 
-    fn = mesh_fn(run, mesh, (nb,))
+    fn = mesh_fn(run, mesh, (nb,), ghost_rows=written_rows(copies))
     fn.copies = copies
     return fn
 
@@ -835,7 +868,8 @@ def shift_remote_exchange(decomp: BrickDecomp, mesh, axis_order=None,
     if not isinstance(mesh, Mesh):
         _one_rank_shape(shape)
     nb = decomp.nbricks
-    plan = [card_rows(mesh, send_copies(st, shape), nb) for st in stages]
+    sends = [send_copies(st, shape) for st in stages]
+    plan = [card_rows(mesh, copies, nb) for copies in sends]
     writes = [{r[0] for per_card in plan for r in per_card[c]}
               for c in range(len(mesh.cards))]
     waits = event_plan(writes, len(plan))
@@ -843,7 +877,8 @@ def shift_remote_exchange(decomp: BrickDecomp, mesh, axis_order=None,
     def run(m, flats, tables):
         run_ordered(flats, plan, remote_copy, tables, waits)
 
-    fn = mesh_fn(run, mesh, (nb,))
+    fn = mesh_fn(run, mesh, (nb,),
+                 ghost_rows=written_rows([c for cs in sends for c in cs]))
     fn.stages, fn.plan, fn.waits = stages, plan, waits
     return fn
 

@@ -34,7 +34,8 @@ from .decomp import BrickDecomp
 from .exchange import (_merge_intervals, _row_vecs, _shift_perm, card_rows,
                        check_copies, check_stage, copy_rows_plain,
                        event_plan, launch_rows, mesh_fn, mesh_self_coords,
-                       _one_rank_shape, on_card, run_ordered, shift_send_id)
+                       _one_rank_shape, on_card, run_ordered, shift_send_id,
+                       written_rows)
 from .mesh import Mesh
 
 
@@ -348,7 +349,11 @@ def strong_exchange(plan: StrongDecomp, axis_order=None, mesh=None):
                     stage_copy(flats[c], local, recvs[c], recv_ivs,
                                tables.get(("table", s, c)))
 
-    fn = mesh_fn(run, _strong_mesh(plan, mesh), (nsub, nb), 3)
+    m = _strong_mesh(plan, mesh)
+    ranks = m.size if isinstance(m, Mesh) else 1
+    fn = mesh_fn(run, m, (nsub, nb), 3, ghost_rows=written_rows(
+        [(r, d0, d1) for r in range(ranks) for st in steps
+         for d0, d1, *_ in st.local_ivs + st.recv_ivs]))
     fn.stages = steps
     return fn
 
@@ -437,8 +442,8 @@ def strong_remote_exchange(plan: StrongDecomp, mesh=None, axis_order=None):
     if not isinstance(mesh, Mesh):
         _one_rank_shape(shape)
     nsub, nb = plan.nsub_local, plan.sdec.nbricks
-    kplan = [card_rows(mesh, copies, nsub * nb)
-             for copies in strong_remote_stages(plan, axis_order)]
+    sends = strong_remote_stages(plan, axis_order)
+    kplan = [card_rows(mesh, copies, nsub * nb) for copies in sends]
     writes = [{r[0] for per_card in kplan for r in per_card[c]}
               for c in range(len(mesh.cards))]
     waits = event_plan(writes, len(kplan))
@@ -446,7 +451,8 @@ def strong_remote_exchange(plan: StrongDecomp, mesh=None, axis_order=None):
     def run(m, flats, tables):
         run_ordered(flats, kplan, strong_remote_copy, tables, waits)
 
-    fn = mesh_fn(run, mesh, (nsub, nb), 3)
+    fn = mesh_fn(run, mesh, (nsub, nb), 3,
+                 ghost_rows=written_rows([c for cs in sends for c in cs]))
     fn.stages, fn.plan, fn.waits = steps, kplan, waits
     return fn
 

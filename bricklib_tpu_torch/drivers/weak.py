@@ -33,8 +33,11 @@ the float64 dense twin at the reference's 1e-6.
 axis of one rank, as the reference requires.  A mesh's ranks may share a
 card (``devices=["cuda:0"] * 4``); without ``devices`` a mesh of several
 ranks takes one card each and raises where there are too few.
-``--profile``, and ``--overlap`` on the pencil backend, raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+``--overlap`` on the pencil backend raises ``NotImplementedError`` naming
+the ROADMAP.md item that brings it.  ``--profile DIR`` runs ``iters`` more
+steps under ``torch.profiler`` with the program's spans on
+(:mod:`..trace`), writes the Chrome trace ``weak_trace.json`` into DIR
+and prints the host and device ms under each span name.
 ``--device`` defaults to ``cuda`` and raises where there is none: nothing
 falls back to the CPU.
 """
@@ -42,11 +45,14 @@ falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..bench.roofline import chain, copy_storage
 from ..bench.timing import mpi_statistics, time_mpi
 from ..codegen.fused_exchange import pencil_sweep_fusedx
@@ -110,8 +116,6 @@ def _check_supported(dims, mesh_shape, backend, exchange, overlap,
     if overlap and backend == "pencil":
         raise not_ported("--overlap", "remaining pencil_sweep features "
                          "(inplace)")
-    if profile_dir:
-        raise not_ported("--profile", "the rest (tracing)")
     if len(mesh_shape) != len(dims):
         raise ValueError(f"--mesh {tuple(mesh_shape)} needs one entry per "
                          f"axis of the {len(dims)}-D domain")
@@ -128,7 +132,14 @@ def _check_fused(nd: int, fuse: int, overlap: bool = False) -> None:
                          "--overlap (the fusion IS the overlap)")
 
 
-def _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
+def _make_step(*args, **kw) -> WeakStep:
+    """The step of :func:`_plan_step`'s arguments, planned inside a
+    ``bricklib.plan`` span."""
+    with trace.span(trace.PLAN):
+        return _plan_step(*args, **kw)
+
+
+def _plan_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
                device, quiet=False, mesh_shape=None, exchange="shift",
                devices=None, backend="pencil", overlap=False) -> WeakStep:
     nd = len(dims)
@@ -152,25 +163,27 @@ def _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
                              f"ghost depth {min(bdim[:nd - 1])}")
         if st_iter % fuse:
             raise ValueError("st_iter must be a multiple of fuse")
-    dec = BrickDecomp(dims=dims, ghost_depth=gz, bdims=bdim).initialize(
-        skinlist_by_name(skin, nd))
+    with trace.span(trace.PLAN_DECOMP):
+        dec = BrickDecomp(dims=dims, ghost_depth=gz, bdims=bdim).initialize(
+            skinlist_by_name(skin, nd))
     if not quiet:
         print(f"skin ordering '{skin}': {len(dec.ghost)} ghost runs "
               f"(PUT messages), {len(dec.sections)} sections")
     # every rank's block with its ghost shell, cut from one global
     # periodic domain (ref: weak.py:90-110)
-    gshape = tuple(m * d for m, d in zip(mesh_shape, dims))
-    g = random_array(gshape, np.float32, seed=3)
-    s = WeakStep(None, None, [], dec, mesh, g, bdim, gz, False,
-                 {"step": 0, "step_noex": 0})
-    arrays = []
-    for r in range(mesh.size):
-        dat = np.zeros((dec.nbricks, int(np.prod(bdim))), np.float32)
-        to_bricks(s.block(r), dec.grid, bdim, dat=dat)
-        dat[dec.sep_pos[1]:] = 0
-        arrays.append(dat.reshape((-1,) + bdim))
-    s.state = to_state(mesh, arrays)
-    del arrays
+    with trace.span(trace.PLAN_DOMAIN):
+        gshape = tuple(m * d for m, d in zip(mesh_shape, dims))
+        g = random_array(gshape, np.float32, seed=3)
+        s = WeakStep(None, None, [], dec, mesh, g, bdim, gz, False,
+                     {"step": 0, "step_noex": 0})
+        arrays = []
+        for r in range(mesh.size):
+            dat = np.zeros((dec.nbricks, int(np.prod(bdim))), np.float32)
+            to_bricks(s.block(r), dec.grid, bdim, dat=dat)
+            dat[dec.sep_pos[1]:] = 0
+            arrays.append(dat.reshape((-1,) + bdim))
+        s.state = to_state(mesh, arrays)
+        del arrays
 
     params = bench_params()
     if backend == "jnp":
@@ -197,11 +210,12 @@ def _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
         """The owned-only and ghost-inclusive sweeps over ``p`` ranks."""
         if p not in by_batch:
             kw = dict(fkw, batch=p, batch_stride=dec.nbricks)
-            by_batch[p] = (
-                sweep(sd, kgrid, bdim, p * dec.nbricks, params,
-                      **_ranges(1), **kw),
-                sweep(sd, kgrid, bdim, p * dec.nbricks, params,
-                      **_ranges(0), **kw) if ghost_sweep else None)
+            with trace.span(trace.PLAN_KERNELS):
+                by_batch[p] = (
+                    sweep(sd, kgrid, bdim, p * dec.nbricks, params,
+                          **_ranges(1), **kw),
+                    sweep(sd, kgrid, bdim, p * dec.nbricks, params,
+                          **_ranges(0), **kw) if ghost_sweep else None)
         return by_batch[p]
 
     s.moves_data = len(table_axes) < nd
@@ -239,11 +253,12 @@ def _make_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
         """Exchange (in place on ``state``) then the sweeps; with the
         fused exchange, K11 is the exchange and the first sweep."""
         s.calls["step"] += 1
-        if fused is not None:
-            return sweeps(fused(state)[0], first=1)
-        if ex is not None:
-            ex(state)
-        return sweeps(state)
+        with trace.span(trace.STEP, step=s.calls["step"]):
+            if fused is not None:
+                return sweeps(fused(state)[0], first=1)
+            if ex is not None:
+                ex(state)
+            return sweeps(state)
 
     def step_noex(state):
         """The step without its exchange: the exchange cost is measured
@@ -292,6 +307,10 @@ def _oracle_step(s: WeakStep, sd, st_iter, params, exchange, overlap):
 
     def step(state):
         s.calls["step"] += 1
+        with trace.span(trace.STEP, step=s.calls["step"]):
+            return _step(state)
+
+    def _step(state):
         if not overlap:
             ex(state)
             return iterate(state, 0)
@@ -505,11 +524,42 @@ def run(dims=(64, 64, 64), bdim=(8, 8, 128), stencil="mpi7pt",
         print(f"  {nm:9s} min {st['min'] * 1e3:7.3f} avg "
               f"{st['avg'] * 1e3:7.3f} max {st['max'] * 1e3:7.3f} sigma "
               f"{st['sigma'] * 1e3:7.3f} ms")
+    spans = profile_steps(s, iters, profile_dir) if profile_dir else None
     return {"step": avg, "exchange": avg_x, "copy": t_copy,
             "copy_gbs": copy_bw / 1e9, "phases": phases,
             "gstencil_s": gst, "vs_copy_sol": gst / sol_gst,
             "calls": dict(s.calls), "device": label, "ranks": s.mesh.size,
-            "cards": len(s.mesh.cards)}
+            "cards": len(s.mesh.cards), "spans": spans}
+
+
+def profile_steps(s: WeakStep, iters: int, out_dir) -> dict:
+    """``iters`` steps of ``s`` from its state under ``torch.profiler``,
+    the program's spans on; writes the Chrome trace
+    ``out_dir/weak_trace.json`` and prints, per span name, the spans,
+    their host ms and the device ms launched inside them
+    (:func:`~..trace.span_times`, which it returns)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cards = [d for d in s.mesh.cards if d.type == "cuda"]
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cards
+                                     else [])
+    state = clone_state(s.state)
+    with profile(activities=acts) as prof, trace.tracing():
+        for _ in range(iters):
+            state = s.step(state)
+        for d in cards:
+            torch.cuda.synchronize(d)
+    trace.records()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "weak_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        times = trace.span_times(json.load(f)["traceEvents"])
+    print(f"trace {path}: {iters} steps")
+    for name, (n, host, dev) in sorted(times.items()):
+        print(f"  {name or '(outside every span)':24s} {n:6d} spans, host "
+              f"{host:9.3f} ms, device {dev:9.3f} ms")
+    return times
 
 
 def _ints(text):
@@ -539,7 +589,9 @@ def main(argv=None):
                    help="jnp: the torch oracle, any rank; pencil: the "
                         "fused pencil sweeps, 3-D and 4-D")
     p.add_argument("--profile", dest="profile_dir", default=None,
-                   help="trace directory (not ported)")
+                   help="after the timing, profile --iters more steps with "
+                        "the program's spans on and write the Chrome trace "
+                        "into this directory")
     p.add_argument("--exchange", default="shift",
                    choices=["shift", "put", "shift-remote", "fused"],
                    help="SHIFT multi-stage, PUT (one copy per ghost run), "

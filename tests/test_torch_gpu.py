@@ -326,6 +326,52 @@ def test_stage_copy_kernel_matches_plain(cuda):
     assert torch.equal(a, b) and not torch.equal(a, x)
 
 
+@pytest.mark.parametrize("fuse,launches", [(4, 3), (1, 9)])
+def test_step_launches_and_spans_on_card(cuda, fuse, launches, tmp_path):
+    """One weak step launches K2 once and ``8 / fuse`` K1 sweeps (the
+    program's counters), and in a profiled step every K1 and K2 kernel
+    lies under a ``bricklib.sweep`` or ``bricklib.exchange`` span."""
+    import json
+
+    from bricklib_tpu_torch import trace
+
+    step, x, _dec = weak.build_step(**dict(STEP, fuse=fuse), device=cuda)
+    x = step(x)
+    torch.cuda.synchronize()
+    before = trace.counters()
+    x = step(x)
+    after = trace.counters()
+    assert sum(after[k] - before[k] for k in trace.KERNELS) == launches
+    assert after["K2"] - before["K2"] == 1
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof, trace.tracing():
+        x = step(x)
+        torch.cuda.synchronize()
+    trace.records()
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    times = trace.span_times(events)
+    assert times["bricklib.sweep"][0] == launches - 1
+    assert times["bricklib.exchange"][0] == 1
+    xs = [e for e in events if e.get("ph") == "X"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in xs
+                   if e.get("cat", "").lower() == "user_annotation"
+                   and e["name"].startswith("bricklib."))
+    launch = {e["args"]["correlation"]: e["ts"] for e in xs
+              if e.get("cat", "").lower() in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    kernels = [e for e in xs if e.get("cat", "").lower() == "kernel"
+               and ("pencil_sweep" in e["name"] or "copy_pool" in e["name"])]
+    assert len(kernels) == launches
+    for k in kernels:
+        t = launch[k["args"]["correlation"]]
+        under = trace.innermost(spans, [sp[0] for sp in spans], t)
+        assert under == ("bricklib.exchange" if "copy_pool" in k["name"]
+                         else "bricklib.sweep"), k["name"]
+
+
 def test_4d_step_on_card_matches_cpu(cuda):
     kw = dict(dims=(8, 8, 8, 16), bdim=(4, 4, 4, 16), stencil="mpi9pt",
               st_iter=4, fuse=2, table_periodic=False)

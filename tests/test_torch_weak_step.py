@@ -118,32 +118,61 @@ def test_cuda_without_a_card_raises():
     (dict(exchange="fused", fuse=1, overlap=True), ValueError,
      "fuse=1, no --overlap"),
     (dict(overlap=True), NotImplementedError, "pencil_sweep features"),
-    (dict(profile_dir="trace"), NotImplementedError, "the rest"),
+    # --profile runs (err None): the trace of the profiled steps is written,
+    # the program's spans nested in it
+    (dict(profile_dir="trace"), None, None),
     (dict(f64_validate=True), None, None),
     (dict(mesh_shape=(16, 1, 1), device="cuda"), ValueError, "CUDA devices"),
 ], ids=["kw0-torch oracle", "kw1-multi-GPU", "kw2-kernel-level exchanges",
         "kw3-kernel-level exchanges", "kw4-pencil_sweep features",
         "kw5-the rest", "kw6-torch oracle", "kw7-multi-GPU"])
-def test_unported_options_raise(kw, err, item, capsys):
+def test_unported_options_raise(kw, err, item, capsys, tmp_path):
     """What the weak driver still refuses: the options of later slices, a
     mesh of more ranks than cards when no devices are given, and the
     fused exchange where the reference refuses it (the PUT, mesh and
     fused cases of earlier slices now run, in
     ``tests/test_torch_mesh_steps.py`` and
-    ``tests/test_torch_fused_exchange.py``)."""
+    ``tests/test_torch_fused_exchange.py``; ``--profile`` runs since the
+    port has its tracing module)."""
     args = dict(STEP, backend="pencil", device="cpu")
     args.update(kw)
+    if "profile_dir" in kw:
+        args["profile_dir"] = tmp_path / kw["profile_dir"]
     if err is None:
-        weak.run(**args, iters=1)
+        res = weak.run(**args, iters=1)
         out = capsys.readouterr().out
         assert "validated against array twin: OK" in out
         if args.get("f64_validate"):
             assert "validated in float64 at 1e-06: OK" in out
+        elif "profile_dir" in kw:
+            _check_profile(args["profile_dir"] / "weak_trace.json", res)
         else:
             _check_oracle_step(args)
         return
     with pytest.raises(err, match=item):
         weak.run(**args)
+
+
+def _check_profile(path, res):
+    """``--profile``'s Chrome trace holds the profiled step (``iters=1``)
+    as a ``bricklib.step`` range around one ``bricklib.exchange`` and the
+    two ``fuse=4`` ``bricklib.sweep`` ranges, each after the last; the run
+    returns the spans' times by name."""
+    import json
+
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                   and e["name"].startswith("bricklib."))
+    (s0, s1, name), *inner = spans
+    assert name == "bricklib.step"
+    assert [n for _a, _b, n in inner] == ["bricklib.exchange",
+                                          "bricklib.sweep", "bricklib.sweep"]
+    ends = [s0] + [b for _a, b, _n in inner]
+    for (a, b, _n), prev in zip(inner, ends):
+        assert prev <= a <= b <= s1
+    assert {k: v[0] for k, v in res["spans"].items()} == {
+        "bricklib.step": 1, "bricklib.exchange": 1, "bricklib.sweep": 2}
 
 
 def _check_oracle_step(args):
