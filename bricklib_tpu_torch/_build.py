@@ -40,6 +40,8 @@ _I64 = ctypes.c_longlong
 SIGNATURES = {
     "bt_pencil_sweep": [_VOID] * 4 + [_INT] * 30
                        + [_VOID, _VOID, _INT, _INT, _VOID],
+    "bt_pencil_sweep_regstream": [_VOID] * 4 + [_INT] * 25
+                                 + [_VOID, _VOID, _INT, _VOID],
     "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 33
                           + [_VOID, _VOID, _INT, _INT, _VOID],
     "bt_pencil_sweep_2d": [_VOID, _VOID, _VOID] + [_INT] * 20

@@ -374,7 +374,8 @@ class Problem:
                     "taps": (None if plan.taps is None
                              else [len(plan.taps.coeffs)])}
             if plan.taps is not None:
-                sp = plan.stream() if nd == 3 else stream_plan_4d(plan)
+                sp = ((plan.regstream() or plan.stream()) if nd == 3
+                      else stream_plan_4d(plan))
                 info["tile_i"], info["smem_bytes"] = sp.ti, sp.smem_bytes
         self.fuse = fuse
         self._make_mesh(device, devices, flat=fused_x)

@@ -69,6 +69,21 @@ PLANE_SPAN = 1 << 20
 # taps' offsets are compile-time constants and a value several taps and
 # rows read is one load
 STREAM_LAYOUTS = ("s7pt", "mpi125pt")
+# K1's register-streaming body (csrc/pencil_regstream.cuh): the star's
+# taps at these fused depths, these compiled row widths (a plane's
+# columns, the i tile and its margins), threads per block and (quad,
+# column) items a thread owns (every level's last two planes of two items
+# take the 128 registers a thread that one block an SM leaves)
+REGSTREAM_FUSE = (2, 3, 4)
+REGSTREAM_ROW_WIDTHS = (40, 72)
+REGSTREAM_THREADS, REGSTREAM_ITEMS = 512, 2
+# its planner's costs of an SM's step, in items of one level: a fixed part
+# (the barrier, level 0's loads and issue, the output rows), a part per
+# level, and one unit per item and level; fitted to the s7pt sweeps of
+# 512^3 (fuse 4 and 2) and of the strong stack (fuse 4) on the H100
+# (bench/k1_regimes.py --footprints: a step costs 0.86 + F (0.20 + 1.6e-4
+# items) us, whatever the chunk)
+RS_STEP_COST, RS_LEVEL_COST = 5400, 1200
 
 
 @lru_cache(maxsize=None)
@@ -288,6 +303,90 @@ def _stream_plan(bdims, ranges, table_k: int, fuse: int, lo, hi,
 
 
 @dataclass(frozen=True)
+class RegStreamPlan(StreamPlan):
+    """K1's launch through its register-streaming body, as
+    :meth:`SweepPlan.regstream` plans it: the blocks are decoded as the
+    ring body's (:meth:`StreamPlan.blocks`), with no skewed levels; every
+    level plane is ``nq`` quads of rows of ``rw`` columns (the compiled row
+    width, ``ti + 2h`` and up), and each block's stash per edge holds every
+    thread's items at the clamp's source planes."""
+
+    rw: int
+    nq: int
+
+
+def regstream_smem(bdims, fuse: int, kch: int, pj: int, rw: int, nq: int,
+                   d: int) -> int:
+    """Dynamic shared memory of one register-streaming block, laid out as
+    ``pencil_regstream.cuh`` lays it out: ``d + 3`` level-0 planes and two
+    of each of levels 1 to F-1, every plane ``nq`` quads of 4 rows of
+    ``rw`` floats and a pad, the row above the first quad before them and
+    ``rw`` floats after, the count rounded up to even; then the brick
+    table, two ints per level-0 row and two buffers of the output rows'
+    offsets (as :func:`stream_smem`)."""
+    wjm = pj * bdims[1]
+    pad = (32 - 3 * rw % 32) % 32
+    planes = d + 3 + 2 * (fuse - 1)
+    n = (rw + pad + planes * nq * (4 * rw + pad) + rw + 1) & ~1
+    return (4 * n + 8 * (kch + 2) * (pj + 2) + 8 * (wjm + 2 * fuse)
+            + 16 * wjm)
+
+
+def regstream_stash_floats(fuse: int) -> int:
+    """Floats of one register-streaming block's stash per k edge: level
+    f's (1 to F-1) ``F - f`` clamp source planes, one float per thread,
+    item and row of each."""
+    return (fuse * (fuse - 1) // 2 * REGSTREAM_THREADS * REGSTREAM_ITEMS
+            * STREAM_ROWS)
+
+
+@lru_cache(maxsize=256)
+def _regstream_plan(bdims, ranges, table_k: int, fuse: int, batch: int):
+    BK, BJ, BI = bdims
+    (K0, K1), (J0, J1) = ranges
+    F = fuse
+    edge_lo, edge_hi = K0 == 0, K1 == table_k
+    if (F not in REGSTREAM_FUSE or F > BK or F > BJ
+            or ((edge_lo or edge_hi) and table_k < 2)):
+        return None
+    nrows, npen = K1 - K0, J1 - J0
+    pw = 4 if BI % 4 == 0 else 1
+    h = -(-F // pw) * pw
+    chunks = sorted(c for c in {-(-nrows // n) for n in range(1, nrows + 1)}
+                    if (c + 2) * BK + 3 * F < PLANE_SPAN)
+    best = None
+    for ti in (t for t in range(pw, BI + 1, pw) if BI % t == 0):
+        rw = min((w for w in REGSTREAM_ROW_WIDTHS if w >= ti + 2 * h),
+                 default=None)
+        if rw is None:
+            continue
+        for pj in range(1, min(npen, MAX_PENCILS) + 1):
+            nq = -(-(pj * BJ + 2 * F) // STREAM_ROWS)
+            if nq * rw > REGSTREAM_THREADS * REGSTREAM_ITEMS:
+                continue
+            # an SM's step: one block an SM (its registers)
+            step = RS_STEP_COST + F * (RS_LEVEL_COST + nq * rw)
+            for kch in chunks:
+                nblocks = (batch * -(-nrows // kch) * -(-npen // pj)
+                           * (BI // ti))
+                waves = -(-nblocks // SM_COUNT)
+                for d in (2, 1):
+                    smem = regstream_smem(bdims, F, kch, pj, rw, nq, d)
+                    if smem > STREAM_SMEM_BUDGET:
+                        continue
+                    cost = (waves * (kch * BK + 2 * F) * step, -d, -ti, kch)
+                    if best is None or cost < best[0]:
+                        best = (cost, (kch, pj, ti, rw, nq, d, smem))
+    if best is None:
+        return None
+    kch, pj, ti, rw, nq, d, smem = best[1]
+    st = regstream_stash_floats(F)
+    return RegStreamPlan(ranges, bdims, batch, kch, pj, ti, h, pw, d,
+                         edge_lo, edge_hi, st * edge_lo, st * edge_hi, 0,
+                         smem, rw, nq)
+
+
+@dataclass(frozen=True)
 class SweepPlan:
     """Everything static about one sweep: brick shape ``bdims`` (outer
     axes, then i), table (one brick id per outer cell), the half-open
@@ -332,6 +431,19 @@ class SweepPlan:
                             tuple(self.hi), self.batch,
                             len(self.taps.coeffs),
                             stream_loads(self.taps.offsets))
+
+    def regstream(self) -> RegStreamPlan | None:
+        """Kernel K1's launch through its register-streaming body, or None
+        where that body does not take the sweep: it takes the star's taps
+        (s7pt, mpi7pt: ``csrc/tap_layouts.cuh``'s ``LayoutStar7``) at
+        ``fuse`` in :data:`REGSTREAM_FUSE`, at the footprint (k chunk,
+        pencils, i tile and its compiled row width, lookahead) of least
+        estimated cost over waves of one block an SM."""
+        if (self.taps is None or self.fuse not in REGSTREAM_FUSE
+                or self.taps.offsets.tolist() != _layouts(("s7pt",))[0]):
+            return None
+        return _regstream_plan(tuple(self.bdims), tuple(self.ranges),
+                               self.table.shape[0], self.fuse, self.batch)
 
 
 def _is_f32(dtype) -> bool:
@@ -433,10 +545,72 @@ def pencil_sweep_plain(x, table: torch.Tensor,
 
 def pencil_sweep_kernel(x: torch.Tensor, table: torch.Tensor,
                         plan: SweepPlan) -> torch.Tensor:
-    """Launch kernel K1 on CUDA tensors, as :meth:`SweepPlan.stream`
-    plans it; returns a fresh output whose unwritten bricks are
-    undefined."""
+    """Launch kernel K1 on CUDA tensors: through its register-streaming
+    body where :meth:`SweepPlan.regstream` plans a launch, else its ring
+    body as :meth:`SweepPlan.stream` plans it; returns a fresh output
+    whose unwritten bricks are undefined."""
+    rp = plan.regstream()
+    if rp is not None:
+        return launch_regstream(x, table, plan, rp)
     return _launch_stream(x, table, plan, None)
+
+
+def _check_k1_args(x: torch.Tensor, table: torch.Tensor,
+                   plan: SweepPlan) -> None:
+    if x.device.type != "cuda" or table.device != x.device:
+        raise ValueError("kernel K1 takes storage and table on one CUDA "
+                         f"device, got {x.device} and {table.device}")
+    if plan.taps is None:
+        raise not_ported("a nonlinear stencil on a CUDA tensor",
+                         FEATURES_ITEM)
+    BK, BJ, BI = plan.bdims
+    GK, GJ = plan.table.shape
+    if (x.dtype != torch.float32 or x.dim() != 4
+            or tuple(x.shape[1:]) != (BK, BJ, BI) or not x.is_contiguous()):
+        raise ValueError(f"storage must be contiguous float32 [nb, {BK}, "
+                         f"{BJ}, {BI}], got {x.dtype} {tuple(x.shape)}")
+    if (table.dtype != torch.int32 or tuple(table.shape) != (GK, GJ)
+            or not table.is_contiguous()):
+        raise ValueError("table must be contiguous int32 "
+                         f"[{GK}, {GJ}]")
+    if len(plan.taps.coeffs) > 128:
+        raise ValueError("kernel K1 takes at most 128 taps")
+
+
+def launch_regstream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
+                     rp: RegStreamPlan) -> torch.Tensor:
+    """K1 through its register-streaming body at ``rp``'s footprint
+    (:meth:`SweepPlan.regstream`'s, or another of the same plan; the C
+    entry point refuses one whose shared memory or stash is short).
+    ``launch_regstream.launches`` counts its launches, the program's
+    counter ``k1_regstream``; each is a K1 launch too."""
+    _check_k1_args(x, table, plan)
+    if rp.nstream > 2 ** 31 - 1:
+        raise ValueError("kernel K1 takes at most 2^31 - 1 blocks")
+    BK, BJ, BI = plan.bdims
+    GK, GJ = plan.table.shape
+    (K0, K1), (J0, J1) = plan.ranges
+    offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
+    coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
+    out = torch.empty_like(x)
+    stream = _build.stream_handle(x.device)
+    stash = _stash(x.device, stream, rp.stash_total())
+    pw = rp.pw if x.data_ptr() % 16 == 0 else 1
+    err = _build.library().bt_pencil_sweep_regstream(
+        x.data_ptr(), out.data_ptr(), table.data_ptr(),
+        None if stash is None else stash.data_ptr(),
+        GK, GJ, BK, BJ, BI, K0, K1, J0, J1, plan.fuse, plan.batch,
+        plan.batch_stride, rp.kch, rp.pj, rp.ti, rp.rw, rp.nq, rp.h, pw,
+        rp.d, int(rp.edge_lo), int(rp.edge_hi), rp.stash_lo, rp.stash_hi,
+        len(coeffs), offs.ctypes.data, coeffs.ctypes.data, rp.smem_bytes,
+        stream)
+    _build.check(err, "pencil_sweep_regstream")
+    pencil_sweep_kernel.launches += 1
+    launch_regstream.launches += 1
+    return out
+
+
+launch_regstream.launches = 0
 
 
 def _stream_footprint(plan: SweepPlan, kch: int, pj: int, ti: int, d: int,
@@ -457,27 +631,13 @@ def _stream_footprint(plan: SweepPlan, kch: int, pj: int, ti: int, d: int,
 
 def _launch_stream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
                    sp: StreamPlan | None) -> torch.Tensor:
-    """K1 at ``sp``'s footprint (``None``: the planner's).  The shared
-    memory and the stash are counted again from the footprint, so no
-    launch takes less than its layout needs."""
-    if x.device.type != "cuda" or table.device != x.device:
-        raise ValueError("kernel K1 takes storage and table on one CUDA "
-                         f"device, got {x.device} and {table.device}")
-    if plan.taps is None:
-        raise not_ported("a nonlinear stencil on a CUDA tensor",
-                         FEATURES_ITEM)
+    """K1's ring body at ``sp``'s footprint (``None``: the planner's
+    :meth:`SweepPlan.stream`).  The shared memory and the stash are
+    counted again from the footprint, so no launch takes less than its
+    layout needs."""
+    _check_k1_args(x, table, plan)
     BK, BJ, BI = plan.bdims
     GK, GJ = plan.table.shape
-    if (x.dtype != torch.float32 or x.dim() != 4
-            or tuple(x.shape[1:]) != (BK, BJ, BI) or not x.is_contiguous()):
-        raise ValueError(f"storage must be contiguous float32 [nb, {BK}, "
-                         f"{BJ}, {BI}], got {x.dtype} {tuple(x.shape)}")
-    if (table.dtype != torch.int32 or tuple(table.shape) != (GK, GJ)
-            or not table.is_contiguous()):
-        raise ValueError("table must be contiguous int32 "
-                         f"[{GK}, {GJ}]")
-    if len(plan.taps.coeffs) > 128:
-        raise ValueError("kernel K1 takes at most 128 taps")
     sp = (plan.stream() if sp is None
           else _stream_footprint(plan, sp.kch, sp.pj, sp.ti, sp.d, sp.skew))
     if sp.nstream > 2 ** 31 - 1:
@@ -636,7 +796,9 @@ def pencil_sweep(stencil, grid: np.ndarray,
         taps=(params_from_reference(params, ir) if ir.linear is not None
               else None),
         ir=ir, params=dict(params or {}), batch=batch, batch_stride=stride)
-    return sweep_fn(plan, nbricks, pencil_sweep_kernel)
+    # the span names the body the card runs (pencil_sweep_kernel's choice)
+    body = "regstream" if plan.regstream() is not None else "stream"
+    return sweep_fn(plan, nbricks, pencil_sweep_kernel, body=body)
 
 
 def check_table(plan: SweepPlan, nbricks: int) -> None:
@@ -650,15 +812,16 @@ def check_table(plan: SweepPlan, nbricks: int) -> None:
                          "bricks")
 
 
-def sweep_fn(plan: SweepPlan, nbricks: int, kernel, name: str = "K1"):
+def sweep_fn(plan: SweepPlan, nbricks: int, kernel, name: str = "K1",
+             **span_args):
     """``fn(dat_view) -> out_view`` for a plan: the plain version for a
     CPU tensor, ``kernel`` for a CUDA one.  The device table is made once
     per device.  Each call is a ``bricklib.sweep`` span (``name``: the
-    kernel's)."""
+    kernel's; ``span_args``: more of its arguments)."""
     check_table(plan, nbricks)
     shape = (int(nbricks),) + tuple(plan.bdims)
     tables: dict = {}
-    args = trace.sweep_args(name, plan.fuse, plan.ranges)
+    args = trace.sweep_args(name, plan.fuse, plan.ranges, **span_args)
 
     def fn(dat_view: torch.Tensor) -> torch.Tensor:
         if tuple(dat_view.shape) != shape:

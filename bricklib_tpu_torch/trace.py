@@ -27,7 +27,8 @@ of one process nest as one stack: trace from one thread.  :func:`records`
 takes them.
 
 Counters are plain ints, always on: each kernel's launches (the
-``launches`` attribute of its wrapper, read where it is), the
+``launches`` attribute of its wrapper, read where it is), those of K1's
+register-streaming body (``k1_regstream``, each a K1 launch too), the
 ``Tensor.copy_`` calls between ranks (``rank_copies``) and the ghost bytes
 the exchanges write (``exchange_bytes``, each byte of the payload once).
 :func:`counters` returns a snapshot.
@@ -63,6 +64,12 @@ KERNELS = {
     "K10": ("comm.strong", "strong_remote_copy"),
     "K11": ("codegen.fused_exchange", "pencil_sweep_fusedx_kernel"),
     "K12": ("codegen.pencil_kernel_nd", "pencil_sweep_nd_kernel"),
+}
+# the launches of a kernel's second body, each one of its kernel's too:
+# name -> (module, wrapper whose ``launches`` counts); no name starts with
+# "K", so a sum over the kernels' counters counts each launch once
+BODIES = {
+    "k1_regstream": ("codegen.pencil_kernel", "launch_regstream"),
 }
 
 _on = False
@@ -196,10 +203,11 @@ def count(name: str, n: int) -> None:
 
 
 def counters() -> dict:
-    """A snapshot: each kernel's launches (``K1`` to ``K12``), read from
-    its wrapper, with ``rank_copies`` and ``exchange_bytes``."""
+    """A snapshot: each kernel's launches (``K1`` to ``K12``) and its
+    second bodies' (:data:`BODIES`), read from their wrappers, with
+    ``rank_copies`` and ``exchange_bytes``."""
     out = {}
-    for k, (mod, fn) in KERNELS.items():
+    for k, (mod, fn) in {**KERNELS, **BODIES}.items():
         m = importlib.import_module(f"{__package__}.{mod}")
         out[k] = int(getattr(m, fn).launches)
     out.update(_counts)

@@ -18,6 +18,8 @@ and across two cards where the machine has them.  K11 (the PUT exchange
 fused into the sweep) must equal the PUT exchange followed by K1 bit for
 bit, and its plain version at abs-or-rel 1e-5 (bit for bit on the
 exchanged storage), on four ranks of one card and across two cards.
+K1's register-streaming body (the star at fuse 2 to 4) must equal its
+ring body and ``fuse`` single-level launches bit for bit.
 """
 
 import dataclasses
@@ -26,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from bricklib_tpu_torch import st
+from bricklib_tpu_torch import st, trace
 from bricklib_tpu_torch.api import Problem
 from bricklib_tpu_torch.bench.k4_regimes import mixed_radius
 from bricklib_tpu_torch.bench.roofline import copy_storage, copy_storage_plain
@@ -43,9 +45,11 @@ from bricklib_tpu_torch.codegen.mxu_kernel import (launch_mxu,
                                                    pencil_sweep_mxu_plain)
 from bricklib_tpu_torch.codegen.pencil_kernel import (SweepPlan,
                                                       _launch_stream,
+                                                      launch_regstream,
                                                       pencil_sweep,
                                                       pencil_sweep_kernel,
                                                       pencil_sweep_plain,
+                                                      regstream_smem,
                                                       stream_smem)
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
     launch_2d, pencil_sweep_2d, pencil_sweep_2d_kernel, pencil_sweep_2d_plain,
@@ -1046,8 +1050,9 @@ def test_stream_sweep_kernel_tall_bricks(cuda):
 
 def test_stream_sweep_kernel_refuses_too_little_shared_memory(cuda,
                                                                monkeypatch):
-    """The C entry point refuses a launch whose shared memory is smaller
-    than its block's layout."""
+    """The C entry points refuse a launch whose shared memory is smaller
+    than its block's layout: the ring body's and the register-streaming
+    body's."""
     import dataclasses
 
     from bricklib_tpu_torch.codegen import pencil_kernel
@@ -1058,11 +1063,18 @@ def test_stream_sweep_kernel_refuses_too_little_shared_memory(cuda,
                       dec.nbricks, bench_params(), fuse=2)
     x = random_storage(dec, seed=29, device=cuda)
     table = torch.from_numpy(fn.plan.table).to(cuda)
-    sp = fn.plan.stream()
+    sp, rp = fn.plan.stream(), fn.plan.regstream()
     short = dataclasses.replace(sp, smem_bytes=sp.smem_bytes - 8)
     monkeypatch.setattr(pencil_kernel.SweepPlan, "stream",
                         lambda self: short)
+    monkeypatch.setattr(pencil_kernel.SweepPlan, "regstream",
+                        lambda self: None)
     with pytest.raises(RuntimeError, match="pencil_sweep"):
+        pencil_sweep_kernel(x, table, fn.plan)
+    short = dataclasses.replace(rp, smem_bytes=rp.smem_bytes - 8)
+    monkeypatch.setattr(pencil_kernel.SweepPlan, "regstream",
+                        lambda self: short)
+    with pytest.raises(RuntimeError, match="pencil_sweep_regstream"):
         pencil_sweep_kernel(x, table, fn.plan)
     monkeypatch.undo()
     _k1_check(cuda, fn, x)
@@ -1085,3 +1097,154 @@ def test_stream_sweep_kernel_batch_16(cuda, skip):
         "s7pt", kg, plan.bdims, nsub * nb, bench_params(),
         k_range=(skip, GK - skip), j_range=(skip, GJ - skip), batch=nsub,
         batch_stride=nb, fuse=4), x)
+
+
+def _composed(cuda, fn, x):
+    """``fn``'s sweep as ``fuse`` single-level K1 launches (the ring body)."""
+    plan = fn.plan
+    GK, GJ = plan.table.shape
+    # over the whole table, or where cells of the table share a brick (a
+    # periodic table), over the sweep's own ranges
+    whole = len(np.unique(plan.table)) == plan.table.size
+    one = dataclasses.replace(
+        plan, fuse=1, ranges=((0, GK), (0, GJ)) if whole else plan.ranges)
+    table = torch.from_numpy(plan.table).to(cuda)
+    for _ in range(plan.fuse):
+        x = pencil_sweep_kernel(x, table, one)
+    return x
+
+
+def _ids(cuda, plan, j0, j1):
+    (K0, K1), _ = plan.ranges
+    ids = plan.table[K0:K1, j0:j1].reshape(-1).astype(np.int64)
+    ids = np.unique(np.concatenate([ids + s * plan.batch_stride
+                                    for s in range(plan.batch)]))
+    return torch.from_numpy(ids).to(cuda)
+
+
+def _rs_check(cuda, fn, x, rp=None):
+    """K1 through its register-streaming body (``rp``: another footprint
+    than the planner's) counts one K1 launch and one ``k1_regstream``, and
+    equals bit for bit its ring body (through ``_launch_stream``) on every
+    brick it writes and ``fuse`` single-level launches on every brick whose
+    levels read no j row beyond the table (the fused levels do not clamp
+    in j, single levels do: the table's edge pencils differ)."""
+    plan = fn.plan
+    table = torch.from_numpy(plan.table).to(cuda)
+    if rp is None:
+        assert plan.regstream() is not None
+    before = trace.counters()
+    got = fn(x) if rp is None else launch_regstream(x, table, plan, rp)
+    after = trace.counters()
+    assert after["k1_regstream"] - before["k1_regstream"] == 1
+    assert after["K1"] - before["K1"] == 1
+    ring = _launch_stream(x, table, plan, None)
+    torch.cuda.synchronize()
+    (_, _), (J0, J1) = plan.ranges
+    GJ = plan.table.shape[1]
+    w = _ids(cuda, plan, J0, J1)
+    assert torch.equal(got[w], ring[w])
+    inner = _ids(cuda, plan, max(J0, 1), min(J1, GJ - 1))
+    assert torch.equal(got[inner], _composed(cuda, fn, x)[inner])
+
+
+def _rs_sweep(region, fuse):
+    """The star at ``fuse`` on a 32 x 40 x 64 domain of (4, 4, 64) bricks,
+    one ghost brick a side in k and j, over ``region``; with ``two-rows``
+    a table of two brick rows, no ghost in k."""
+    if region == "two-rows":
+        dec = BrickDecomp(dims=(8, 24, 64), ghost_depth=(0, 4, 0),
+                          bdims=(4, 4, 64)).initialize(
+            skinlist_by_name("good", 3))
+    else:
+        dec = BrickDecomp(dims=(32, 40, 64), ghost_depth=(4, 4, 0),
+                          bdims=(4, 4, 64)).initialize(
+            skinlist_by_name("good", 3))
+    GK, GJ = dec.grid.shape[:2]
+    grid = dec.periodic_grid((0, 1, 2)) if region == "periodic" else dec.grid
+    kr, jr = {"periodic": ((1, GK - 1), (1, GJ - 1)),
+              "ghost": ((0, GK), (0, GJ)),
+              "owned": ((1, GK - 1), (1, GJ - 1)),
+              "low-edge": ((0, GK - 1), (1, GJ - 1)),
+              "high-edge": ((1, GK), (0, GJ)),
+              "two-rows": ((0, GK), (0, GJ))}[region]
+    return dec, pencil_sweep("s7pt", grid, dec.bdims, dec.nbricks,
+                             bench_params(), k_range=kr, j_range=jr,
+                             fuse=fuse)
+
+
+@pytest.mark.parametrize("fuse", [2, 3, 4])
+@pytest.mark.parametrize("region", ["periodic", "ghost", "owned",
+                                    "low-edge", "high-edge", "two-rows"])
+def test_regstream_kernel_is_the_ring_body_bit_for_bit(cuda, region, fuse):
+    """The register-streaming body against the ring body and single-level
+    launches: periodic, ghost-inclusive (both k edges), owned-only, one k
+    edge, and a table of two brick rows (the low edge's pre-roll reaches
+    the high edge's sources)."""
+    dec, fn = _rs_sweep(region, fuse)
+    _rs_check(cuda, fn, random_storage(dec, seed=31 + fuse, device=cuda))
+
+
+@pytest.mark.parametrize("fuse", [2, 3, 4])
+@pytest.mark.parametrize("skip", [0, 1])
+def test_regstream_kernel_batch_16(cuda, skip, fuse):
+    """The register-streaming body over a stack of 16 subdomains."""
+    plan = StrongDecomp(dom=(64, 64, 32), sdom=(16, 16, 32),
+                        mesh_shape=(1, 1, 1), bdims=(4, 4, 32),
+                        ghost_depth=(4, 4, 0)).initialize(
+        skinlist_by_name("good", 3))
+    kg = plan.sdec.periodic_grid((2,))
+    nb, nsub = plan.sdec.nbricks, plan.nsub_local
+    assert nsub == 16
+    GK, GJ = kg.shape[:2]
+    x = torch.from_numpy(random_array((nsub * nb,) + plan.bdims, np.float32,
+                                      25)).to(cuda)
+    _rs_check(cuda, pencil_sweep(
+        "s7pt", kg, plan.bdims, nsub * nb, bench_params(),
+        k_range=(skip, GK - skip), j_range=(skip, GJ - skip), batch=nsub,
+        batch_stride=nb, fuse=fuse), x)
+
+
+@pytest.mark.parametrize("fuse", [2, 3, 4])
+def test_regstream_kernel_ragged_footprints(cuda, fuse):
+    """The register-streaming body at footprints whose chunks and pencil
+    groups do not divide the ranges, at both row widths, lookahead 1 and
+    2, and on storage that is not 16-byte aligned (pieces of one float)."""
+    dec, fn = _rs_sweep("ghost", fuse)
+    plan = fn.plan
+    rp = plan.regstream()
+    x = random_storage(dec, seed=41, device=cuda)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    odd = flat[1:].view(x.shape)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16 != 0
+    BJ = plan.bdims[1]
+    for kch, pj, rw, d, st in ((3, 3, 40, 2, x), (5, 4, 72, 1, x),
+                               (2, 5, 72, 2, odd), (4, 3, 40, 1, odd)):
+        nq = -(-(pj * BJ + 2 * fuse) // 4)
+        ti = min(plan.bdims[2], rw - 2 * rp.h)
+        v = dataclasses.replace(
+            rp, kch=kch, pj=pj, ti=ti, rw=rw, nq=nq, d=d,
+            smem_bytes=regstream_smem(plan.bdims, fuse, kch, pj, rw, nq, d))
+        assert nq * rw <= 1024
+        _rs_check(cuda, fn, st, v)
+
+
+def test_regstream_counter_moves_once_per_new_body_launch(cuda):
+    """``k1_regstream`` moves by one for each launch of the new body and
+    not for K1's other launches (fuse 1, the cube), while ``K1`` counts
+    them all."""
+    dec = BrickDecomp(dims=(32, 32, 64), ghost_depth=(4, 4, 0),
+                      bdims=(4, 4, 64)).initialize(skinlist_by_name("good", 3))
+    x = random_storage(dec, seed=43, device=cuda)
+    for stencil, fuse, n in (("s7pt", 4, 1), ("mpi7pt", 2, 1),
+                             ("s7pt", 1, 0), ("mpi125pt", 2, 0)):
+        fn = pencil_sweep(stencil, dec.periodic_grid((0, 1, 2)), dec.bdims,
+                          dec.nbricks, bench_params(), fuse=fuse)
+        before = trace.counters()
+        fn(x)
+        fn(x)
+        after = trace.counters()
+        assert after["k1_regstream"] - before["k1_regstream"] == 2 * n
+        assert after["K1"] - before["K1"] == 2
+    torch.cuda.synchronize()

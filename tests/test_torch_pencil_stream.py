@@ -13,19 +13,38 @@ KB per block, the edge flags are set exactly on the chunks where a level
 reaches outside the table, and each edge's stash is sized for its clamp
 sources.  They also hold the tap layouts K1 compiles in
 (``csrc/tap_layouts.cuh``) to the corpus stencils they name, and count the
-loads the planner expects under them.  The kernel itself runs only on the
-card (``tests/test_torch_gpu.py``, ``test_stream_sweep_kernel_*``).
+loads the planner expects under them.
+
+The star at ``fuse`` 2 to 4 takes K1's register-streaming body
+(``csrc/pencil_regstream.cuh``, planned by ``SweepPlan.regstream``): the
+same block decoding, its own footprint (compiled row widths, two items a
+thread) and a stash of every thread's items.  The ``regstream`` tests hold
+its planner to the same coverage, shared memory and edge rules, and its
+dispatch to the star at those depths: every other sweep, K11's included,
+keeps ``SweepPlan.stream``.  The kernels themselves run only on the card
+(``tests/test_torch_gpu.py``, ``test_stream_sweep_kernel_*`` and
+``test_regstream_*``).
 """
 
 import numpy as np
 import pytest
+import torch
 
 from bricklib_tpu_torch.codegen import pencil_kernel
-from bricklib_tpu_torch.codegen.pencil_kernel import (STREAM_LAYOUTS,
+from bricklib_tpu_torch import trace
+from bricklib_tpu_torch.codegen.pencil_kernel import (REGSTREAM_FUSE,
+                                                      REGSTREAM_ITEMS,
+                                                      REGSTREAM_ROW_WIDTHS,
+                                                      REGSTREAM_THREADS,
+                                                      STREAM_LAYOUTS,
                                                       STREAM_ROWS,
                                                       STREAM_SMEM_BUDGET,
+                                                      RegStreamPlan,
+                                                      StreamPlan,
                                                       _stream_footprint,
                                                       pencil_sweep,
+                                                      regstream_smem,
+                                                      regstream_stash_floats,
                                                       stash_floats,
                                                       stream_loads,
                                                       stream_smem)
@@ -266,3 +285,208 @@ def test_planner_raises_when_nothing_fits():
         pencil_kernel._stream_plan.__wrapped__(
             (8, 8, 32), fn.plan.ranges, fn.plan.table.shape[0], 2,
             fn.plan.lo, fn.plan.hi, 1, 125, budget=1024)
+
+
+# the sweeps K1's register-streaming body takes: the main paths' star at
+# fuse 4 and the small cases, and the star at fuse 2 and 3
+RS_CASES = {name: CASES[name] for name in (
+    "weak-ghost-f4", "weak-owned-f4", "periodic-s7pt-f4",
+    "strong-x16-ghost-f4", "strong-x16-owned-f4", "batch-16-ghost",
+    "bi-32-ghost-f4", "bi-32-owned-f4", "distributed-weak-rank")}
+RS_CASES.update({
+    f"{kind}-f{f}": (lambda kind=kind, f=f: _weak(
+        "s7pt", f, kind == "ghost", periodic=kind == "periodic"))
+    for f in (2, 3) for kind in ("ghost", "owned", "periodic")})
+RS_CASES.update({
+    "two-brick-rows-f4": lambda: pencil_sweep(
+        "s7pt", _dec((8, 16, 32), (4, 4, 32))[1], (4, 4, 32),
+        _dec((8, 16, 32), (4, 4, 32))[0].nbricks, bench_params(),
+        k_range=(0, 2), j_range=(0, 6), fuse=4),
+    "ragged-k-low-edge-f3": lambda: _ragged((0, 7), "s7pt", 3),
+    "bi-20-pieces-of-one-f2": lambda: pencil_sweep(
+        "s7pt", _dec((16, 16, 20), (4, 4, 20))[1], (4, 4, 20),
+        _dec((16, 16, 20), (4, 4, 20))[0].nbricks, bench_params(),
+        k_range=(0, 6), j_range=(0, 6), fuse=2),
+})
+
+
+@pytest.fixture(params=sorted(RS_CASES))
+def rs_sweep(request):
+    return RS_CASES[request.param]()
+
+
+def test_regstream_blocks_cover_every_output_once(rs_sweep):
+    """The register-streaming launch's blocks, decoded as the kernel
+    decodes them, cover every output brick row x pencil x i lane of every
+    subdomain exactly once."""
+    plan = rs_sweep.plan
+    rp = plan.regstream()
+    assert isinstance(rp, RegStreamPlan)
+    (K0, K1), (J0, J1) = plan.ranges
+    BI = plan.bdims[2]
+    seen = np.zeros((plan.batch, K1 - K0, J1 - J0, BI), np.int32)
+    blocks = rp.blocks()
+    assert len(blocks) == rp.nstream
+    for sub, (k0, k1), (j0, j1), (i0, i1), _edges in blocks:
+        assert K0 <= k0 < k1 <= K1 and J0 <= j0 < j1 <= J1
+        seen[sub, k0 - K0:k1 - K0, j0 - J0:j1 - J0, i0:i1] += 1
+    assert (seen == 1).all()
+
+
+def test_regstream_footprint_fits_its_compiled_shape(rs_sweep):
+    """A block's shared memory fits the H100's 227 KB (one block an SM:
+    its registers leave no room for a second) and is the layout's count;
+    a plane's rows (the pencils and F radii each side, in quads) fit its
+    ``nq`` quads, its columns (the i tile and its margins) the compiled
+    row width, and its items the threads' two each."""
+    plan = rs_sweep.plan
+    rp = plan.regstream()
+    BJ, BI = plan.bdims[1:]
+    F = plan.fuse
+    assert 0 < rp.smem_bytes <= STREAM_SMEM_BUDGET == 232448
+    assert rp.smem_bytes == regstream_smem(plan.bdims, F, rp.kch, rp.pj,
+                                           rp.rw, rp.nq, rp.d)
+    assert rp.rw in REGSTREAM_ROW_WIDTHS and rp.ti + 2 * rp.h <= rp.rw
+    assert BI % rp.ti == 0 and rp.ti % rp.pw == 0 and rp.h % rp.pw == 0
+    assert rp.h >= F and rp.d in (1, 2) and rp.skew == 0
+    assert rp.nq == -(-(rp.pj * BJ + 2 * F) // STREAM_ROWS)
+    assert rp.nq * rp.rw <= REGSTREAM_THREADS * REGSTREAM_ITEMS
+
+
+def test_regstream_edge_chunks_and_stash(rs_sweep):
+    """Edge chunks are where a level leaves the table, as in the ring
+    body; each edge's stash holds every thread's items at level f's F - f
+    source planes."""
+    plan = rs_sweep.plan
+    rp = plan.regstream()
+    BK, F = plan.bdims[0], plan.fuse
+    GK = plan.table.shape[0]
+    for _sub, (k0, k1), _j, _i, edges in rp.blocks():
+        assert ("low" in edges) == (k0 * BK - F < 0)
+        assert ("high" in edges) == (k1 * BK + F > GK * BK)
+    per = sum(F - f for f in range(1, F)) * REGSTREAM_THREADS * \
+        REGSTREAM_ITEMS * STREAM_ROWS
+    assert regstream_stash_floats(F) == per
+    assert rp.stash_lo == per * rp.edge_lo
+    assert rp.stash_hi == per * rp.edge_hi
+    assert rp.stash_total() == (plan.batch * rp.njg * rp.nit
+                                * (rp.stash_lo + rp.stash_hi))
+
+
+@pytest.mark.parametrize("name", sorted(RS_CASES))
+def test_regstream_dispatch_takes_the_star_at_fuse_2_to_4(name):
+    """Star taps at fuse 2 to 4 take the register-streaming body."""
+    fn = RS_CASES[name]()
+    assert fn.plan.fuse in REGSTREAM_FUSE == (2, 3, 4)
+    assert isinstance(fn.plan.regstream(), RegStreamPlan)
+
+
+@pytest.mark.parametrize("name", ["periodic-s7pt-f1", "periodic-mpi125pt-f1",
+                                  "periodic-mpi125pt-f2",
+                                  "k-extent-not-a-chunk-multiple",
+                                  "k-extent-one-row-low-edge"])
+def test_regstream_dispatch_leaves_the_other_sweeps_on_the_ring_body(name):
+    """``fuse=1``, the cube and the generic taps (mpi13pt) keep the ring
+    body and ``SweepPlan.stream``."""
+    fn = CASES[name]()
+    assert fn.plan.regstream() is None
+    assert type(fn.plan.stream()) is StreamPlan
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 3, 4])
+def test_regstream_sweep_span_names_the_body(fuse):
+    """A sweep's ``bricklib.sweep`` span names the body the card runs."""
+    dec, grid = _dec((32, 32, 32), (8, 8, 32))
+    fn = pencil_sweep("s7pt", grid, dec.bdims, dec.nbricks, bench_params(),
+                      fuse=fuse)
+    with trace.tracing():
+        trace.records()
+        fn(torch.zeros((dec.nbricks,) + tuple(dec.bdims)))
+        (sp,) = [s for s in trace.records() if s.name == trace.SWEEP]
+    assert sp.args["kernel"] == "K1" and sp.args["fuse"] == fuse
+    assert sp.args["body"] == ("stream" if fuse == 1 else "regstream")
+
+
+def test_regstream_dispatch_leaves_k11_on_the_ring_body():
+    """K11's sweep blocks are K1's own ring plan at fuse 1, per card."""
+    from bricklib_tpu_torch.codegen import fused_exchange as fx
+    from bricklib_tpu_torch.comm import exchange as port_ex
+    from bricklib_tpu_torch.comm.mesh import Mesh
+
+    bd = (4, 4, 32)
+    dec = BrickDecomp(dims=(24, 16, 32), ghost_depth=(4, 4, 0),
+                      bdims=bd).initialize(skinlist_by_name("good", 3))
+    plan = port_ex.put_plan(dec, (2, 2, 1), (2,))
+    fn = fx.pencil_sweep_fusedx(
+        "s7pt", dec.periodic_grid((2,)), bd, dec.nbricks, plan, (2, 2, 1),
+        bench_params(), mesh=Mesh((2, 2, 1), ("z", "y", "x"), ["cpu"] * 4))
+    assert fn.plan.fuse == 1 and fn.plan.regstream() is None
+    assert fn.cards and all(type(cp.stream) is StreamPlan
+                            for cp in fn.cards)
+
+
+@pytest.mark.parametrize("fuse", [2, 3, 4])
+def test_regstream_dispatch_refuses_other_taps_and_depths(fuse):
+    """mpi7pt (the star's offsets, other coefficients) takes the body;
+    the box, the 13-point star and the cube do not, nor fuse 5."""
+    for stencil, want in (("mpi7pt", True), ("s27pt", False)):
+        fn = _weak(stencil, fuse, False, n=32, bi=32)
+        assert (fn.plan.regstream() is not None) == want, stencil
+    assert _ragged((1, 12), "mpi13pt", 2).plan.regstream() is None
+    assert _weak("mpi125pt", 2, False, True, n=32, bi=32).plan.regstream() \
+        is None
+    dec, grid = _dec((40, 40, 32), (8, 8, 32))
+    fn = pencil_sweep("s7pt", grid, dec.bdims, dec.nbricks, bench_params(),
+                      fuse=5)
+    assert fn.plan.regstream() is None
+
+
+def test_regstream_smem_counts_the_layout():
+    """F = 2, one pencil of 4 rows, row width 40 (pad 8: a quad's stride
+    168 is 40 modulo 32), 2 quads, lookahead 2: the row above quad 0 (48
+    floats), 5 level-0 planes and 2 of level 1, each 2 x 168 floats, 40
+    after, then a brick table of (2 + 2) x (1 + 2), 8 rows of two ints and
+    two buffers of 4 output row offsets."""
+    got = regstream_smem((4, 4, 32), 2, 2, 1, 40, 2, 2)
+    assert got == (4 * (48 + 7 * 2 * 168 + 40) + 8 * 4 * 3 + 8 * 8
+                   + 16 * 4)
+    # row width 72: pad 8, a quad 296 floats (72 modulo 32)
+    got = regstream_smem((8, 8, 512), 4, 22, 6, 72, 14, 2)
+    assert got == (4 * (80 + 11 * 14 * 296 + 72) + 8 * 24 * 8 + 8 * 56
+                   + 16 * 48)
+
+
+def test_regstream_constants_are_the_kernels():
+    """The planner's threads, items a thread and row widths are the ones
+    ``csrc/pencil_regstream.cu[h]`` compiles in."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(pencil_kernel.__file__).resolve().parents[1] / "csrc"
+    head = (csrc / "pencil_regstream.cuh").read_text()
+    body = (csrc / "pencil_regstream.cu").read_text()
+    assert int(re.search(r"#define BT_RS_THREADS (\d+)", head)[1]) == \
+        REGSTREAM_THREADS
+    assert int(re.search(r"#define BT_RS_ITEMS (\d+)", head)[1]) == \
+        REGSTREAM_ITEMS
+    widths = re.search(r"rs_row_width\(int RW\) \{ return ([^;]*);",
+                       body)[1]
+    assert tuple(int(w) for w in re.findall(r"RW == (\d+)", widths)) == \
+        REGSTREAM_ROW_WIDTHS
+    for rw in REGSTREAM_ROW_WIDTHS:
+        assert f"launch_rw<{rw}>" in body
+
+
+def test_regstream_planner_fills_the_card_at_the_main_paths():
+    """A step's cost hardly grows with its items (a fixed part and one per
+    level dominate: the planner's fitted costs), so it takes the widest pencil
+    groups the threads' items allow at whole waves: the weak 512^3 sweeps
+    at fuse 4 in two waves of 132 blocks (chunks of 22 brick rows, six
+    pencils, i tiles of 64 lanes), the strong stack's in three."""
+    for name in ("weak-ghost-f4", "weak-owned-f4", "periodic-s7pt-f4"):
+        rp = REGIMES[name]().plan.regstream()
+        assert rp.nstream == 2 * pencil_kernel.SM_COUNT, name
+        assert (rp.kch, rp.pj, rp.ti, rp.rw) == (22, 6, 64, 72)
+    for name in ("strong-x16-ghost-f4", "strong-x16-owned-f4"):
+        rp = REGIMES[name]().plan.regstream()
+        assert rp.nstream == 384 and (rp.pj, rp.ti, rp.rw) == (6, 64, 72)
