@@ -25,12 +25,12 @@ import numpy as np
 import torch
 
 from . import faults, fields, reference
-from .cell import load_cell
-from .harness import Loop, System, check
+from .cell import build_system, load_cell
+from .harness import Loop, check
 from .timing import StepClock
 
 
-def program_reading(system: System, seed: int) -> dict:
+def program_reading(system, seed: int) -> dict:
     """``check`` of the first answers of a loop drawn from ``seed``."""
     loop = Loop(system, seed, StepClock(system.devices))
     loop.run(steps=loop.S * loop.R)
@@ -43,16 +43,16 @@ def program_reading(system: System, seed: int) -> dict:
 def control_reading(cell, seed: int, device) -> float:
     """The control's widest relative gap: the reference in bfloat16
     against the reference in float32, over field 0 of ``seed``, on every
-    rank's block."""
+    subdomain's block."""
     iters = int(cell.traffic["problem_steps"]) * int(cell.config["st_iter"])
     f = fields.draw_field(cell.global_domain, seed, 0, device)
     want = reference.iterate(f, cell.taps, iters)
     got = reference.iterate(f, cell.taps, iters, dtype=torch.bfloat16)
     del f
     return max(reference.rel_err(
-        fields.rank_block(got, np.unravel_index(r, cell.mesh), cell.domain),
-        fields.rank_block(want, np.unravel_index(r, cell.mesh), cell.domain))
-        for r in range(cell.ranks))
+        fields.rank_block(got, coords, cell.subdomain),
+        fields.rank_block(want, coords, cell.subdomain))
+        for coords in np.ndindex(*cell.subdomain_grid))
 
 
 def _ints(text: str) -> list[int]:
@@ -75,7 +75,7 @@ def main(argv=None) -> None:
 
     if a.device == "cuda":
         emit(kind=torch.cuda.get_device_name(0))
-    system = System(cell, a.device) if (a.seeds or a.faults) else None
+    system = build_system(cell, a.device) if (a.seeds or a.faults) else None
     for seed in _ints(a.seeds):
         t0 = time.perf_counter()
         r = program_reading(system, seed)
@@ -88,8 +88,8 @@ def main(argv=None) -> None:
     for name in [f for f in a.faults.split(",") if f]:
         if name == "no_exchange":
             del system
-            with faults.no_exchange():
-                system = System(cell, a.device)
+            with faults.no_exchange(cell):
+                system = build_system(cell, a.device)
         else:
             step = system.step
             faults.WRAPS[name](system)
@@ -99,7 +99,7 @@ def main(argv=None) -> None:
                  rel_err=r["rel_err"][0], answers=r["answers"])
         if name == "no_exchange":
             del system
-            system = System(cell, a.device)
+            system = build_system(cell, a.device)
         else:
             system.step = step
     print("calibrate: done", file=sys.stderr)

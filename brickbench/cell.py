@@ -3,12 +3,19 @@
 The harness finds every piece by name: the cell's entry in
 ``BENCHMARK.json`` names its configuration and traffic;
 ``configs/<config>.json`` and ``workloads/<traffic>.json`` hold them;
-``stencils/<stencil>.py`` holds the taps; ``metrics/<metric>.py`` reads
-each metric.  Nothing here knows a particular cell.
+the configuration names its driver, whose adapter is
+``systems/<driver>.py``; ``stencils/<stencil>.py`` holds the taps;
+``metrics/<metric>.py`` reads each metric.  Nothing here knows a
+particular cell.
+
+A weak cell's traffic gives each rank's ``domain``; a strong cell's gives
+the ``global_domain`` and the ``subdomain`` it is cut into, every rank
+holding a block of subdomains.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import math
@@ -37,7 +44,8 @@ def _read_json(path: Path) -> dict:
 @dataclass
 class Cell:
     """One cell: its entry, configuration and traffic, with the metric
-    entries of ``BENCHMARK.json`` that it reports."""
+    entries of ``BENCHMARK.json`` that it reports, and the folder whose
+    files it was loaded from (``root``: its adapter's too)."""
 
     name: str
     chips: int
@@ -45,10 +53,49 @@ class Cell:
     traffic: dict
     end_to_end: list = field(default_factory=list)
     per_layer: list = field(default_factory=list)
+    root: Path = HERE
+
+    @functools.cached_property
+    def adapter(self):
+        """The adapter of the configuration's driver, ``systems/<driver>.py``
+        under ``root``, loaded once (:func:`system_adapter`)."""
+        return system_adapter(self.driver, self.root)
+
+    @property
+    def driver(self) -> str:
+        """The name of the configuration's driver: its adapter is
+        ``systems/<driver>.py``."""
+        name = self.config.get("driver")
+        if name is None:
+            raise ValueError(f"configuration {self.config.get('name')!r} "
+                             "names no driver")
+        return check_name(name, "driver")
 
     @property
     def domain(self) -> tuple[int, ...]:
-        return tuple(int(d) for d in self.traffic["domain"])
+        """One rank's domain: the traffic's ``domain``, else the global
+        domain over the mesh."""
+        if "domain" in self.traffic:
+            return tuple(int(d) for d in self.traffic["domain"])
+        return _split(self.global_domain, self.mesh, "the mesh")
+
+    @property
+    def subdomain(self) -> tuple[int, ...]:
+        """The block a slot of the program's state holds: the traffic's
+        ``subdomain``, else the rank's domain."""
+        if "subdomain" not in self.traffic:
+            return self.domain
+        return tuple(int(d) for d in self.traffic["subdomain"])
+
+    @property
+    def subdomains_per_rank(self) -> int:
+        return math.prod(_split(self.domain, self.subdomain,
+                                "the subdomain"))
+
+    @property
+    def subdomain_grid(self) -> tuple[int, ...]:
+        """Subdomains per axis of the global domain."""
+        return _split(self.global_domain, self.subdomain, "the subdomain")
 
     @property
     def mesh(self) -> tuple[int, ...]:
@@ -56,9 +103,10 @@ class Cell:
 
     @property
     def brick(self) -> tuple[int, ...]:
-        """Brick shape, 0 standing for the domain's extent on that axis."""
+        """Brick shape, 0 standing for the subdomain's extent on that
+        axis."""
         return tuple(int(b) or d for b, d in
-                     zip(self.config["brick"], self.domain))
+                     zip(self.config["brick"], self.subdomain))
 
     @property
     def ghost(self) -> tuple[int, ...]:
@@ -66,6 +114,8 @@ class Cell:
 
     @property
     def global_domain(self) -> tuple[int, ...]:
+        if "global_domain" in self.traffic:
+            return tuple(int(d) for d in self.traffic["global_domain"])
         return tuple(m * d for m, d in zip(self.mesh, self.domain))
 
     @property
@@ -83,8 +133,19 @@ class Cell:
 
     def metrics(self, trace: bool) -> list[dict]:
         """The metric entries this cell reports: its end-to-end metrics
-        without tracing, its per-layer metrics with it."""
-        return self.per_layer if trace else self.end_to_end
+        without tracing, its per-layer metrics with it; of a metric that
+        lists its ``workloads``, only the cells listed."""
+        return [m for m in (self.per_layer if trace else self.end_to_end)
+                if self.name in m.get("workloads", (self.name,))]
+
+
+def _split(whole, part, what: str) -> tuple[int, ...]:
+    """``whole // part`` per axis; raises unless ``part`` divides it."""
+    if len(whole) != len(part) or any(
+            p <= 0 or w % p for w, p in zip(whole, part)):
+        raise ValueError(f"{tuple(whole)} does not split by {what} "
+                         f"{tuple(part)}")
+    return tuple(w // p for w, p in zip(whole, part))
 
 
 def load_cell(name: str, bench: Path | None = None,
@@ -104,16 +165,40 @@ def load_cell(name: str, bench: Path | None = None,
     if traffic["config"] != entry["config"]:
         raise ValueError(f"traffic {entry['traffic']!r} is for "
                          f"{traffic['config']!r}, not {entry['config']!r}")
-    return Cell(name, int(entry["chips"]), config, traffic,
-                spec["end_to_end"], spec["per_layer"])
+    cell = Cell(name, int(entry["chips"]), config, traffic,
+                spec["end_to_end"], spec["per_layer"], root)
+    if not (root / "systems" / f"{cell.driver}.py").is_file():
+        raise ValueError(f"configuration {entry['config']!r} names the "
+                         f"driver {cell.driver!r}, which has no adapter")
+    cell.adapter  # loaded now: a run may outlast a temporary root
+    return cell
+
+
+def _load(kind: str, name: str, root: Path | None):
+    """The module ``<kind>s/<name>.py`` of ``root`` (default: this
+    folder), loaded from its file."""
+    path = Path(root or HERE) / f"{kind}s" / f"{check_name(name, kind)}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"brickbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metric_reader(name: str, root: Path | None = None):
     """The module ``metrics/<name>.py`` of ``root`` (default: this
     folder), loaded from its file."""
-    path = Path(root or HERE) / "metrics" / f"{check_name(name, 'metric')}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"brickbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load("metric", name, root)
+
+
+def system_adapter(driver: str, root: Path | None = None):
+    """The module ``systems/<driver>.py`` of ``root`` (default: this
+    folder): its ``System`` builds the program's step for a cell, its
+    ``no_exchange()`` is the fault that builds it without its exchange."""
+    return _load("system", driver, root)
+
+
+def build_system(cell: Cell, device: str = "cuda"):
+    """The program under test on ``cell``: the ``System`` of the adapter
+    that the cell's configuration names."""
+    return cell.adapter.System(cell, device)

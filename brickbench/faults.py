@@ -1,14 +1,13 @@
 """Faults planted under the timed path, for the check's own tests: each
 must make ``correct`` come out false.
 
-``wrap`` functions replace a built :class:`~brickbench.harness.System`'s
-step; :func:`no_exchange` is a context in which the program builds its
-step without its ghost exchange.
+``wrap`` functions replace the step of a built system (an adapter's
+``System``, :mod:`brickbench.systems`); :func:`no_exchange` gives the
+context in which a cell's driver builds its step without its ghost
+exchange.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 
 def unchanged(system) -> None:
@@ -17,7 +16,7 @@ def unchanged(system) -> None:
 
 
 def half(system) -> None:
-    """A step that leaves half of every rank's owned bricks as they were."""
+    """A step that leaves half of every slot's owned bricks as they were."""
     step = system.step
     rows = {d: r[: len(r) // 2] for d, r in system.rows.items()}
 
@@ -33,7 +32,8 @@ def half(system) -> None:
 
 
 def altered(system) -> None:
-    """A step whose output has one owned element of rank 0 negated."""
+    """A step whose output has one owned element of the first slot of
+    card 0 negated."""
     step = system.step
     dev = system.devices[0]
     row = int(system.rows[dev][len(system.rows[dev]) // 3])
@@ -48,18 +48,11 @@ def altered(system) -> None:
     system.step = broken
 
 
-@contextlib.contextmanager
-def no_exchange():
-    """The program's SHIFT exchange replaced by one that moves nothing."""
-    from bricklib_tpu_torch.drivers import weak
-
-    saved = weak.EXCHANGES["shift"]
-    weak.EXCHANGES["shift"] = lambda dec, mesh, table_axes=(): (
-        lambda state: state)
-    try:
-        yield
-    finally:
-        weak.EXCHANGES["shift"] = saved
+def no_exchange(cell):
+    """A context in which the driver that ``cell``'s configuration names
+    builds its step with an exchange that moves nothing: its adapter's
+    ``no_exchange``."""
+    return cell.adapter.no_exchange()
 
 
 WRAPS = {"unchanged": unchanged, "half": half, "altered": altered}

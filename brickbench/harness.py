@@ -20,87 +20,17 @@ import time
 from contextlib import nullcontext
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from . import fields, reference, roofline, trace
-from .cell import Cell
+from .cell import Cell, build_system
 from .timing import StepClock
-
-
-class System:
-    """The program under test: ``bricklib_tpu_torch.drivers.weak``'s
-    step on the cell's shapes (pencil backend, SHIFT exchange, real ghost
-    bricks on every exchanged axis), one rank a card (on the CPU every
-    rank on the CPU, the kernels' plain versions)."""
-
-    def __init__(self, cell: Cell, device: str = "cuda"):
-        from bricklib_tpu_torch.drivers.weak import build_step
-
-        cfg = cell.config
-        t0 = time.perf_counter()
-        self.step, state, self.dec = build_step(
-            dims=cell.domain, bdim=cell.brick, stencil=cfg["stencil"],
-            st_iter=int(cfg["st_iter"]), fuse=int(cell.traffic["fuse"]),
-            table_periodic=False, skin=cfg["skin"], device=device,
-            mesh_shape=cell.mesh, exchange="shift", devices=None,
-            backend="pencil")
-        self.plan_s = time.perf_counter() - t0
-        self.state = state
-        self.cell = cell
-        self.single = torch.is_tensor(state)
-        cards = self.cards(state)
-        self.devices = [t.device for t in cards]
-        self.nbricks = int(cards[0].shape[1])
-        bricks = tuple(cards[0].shape[2:])
-        if bricks != cell.brick:
-            raise ValueError(f"the program's bricks {bricks} are not the "
-                             f"cell's {cell.brick}")
-        gz = [g // b for g, b in zip(cell.ghost, cell.brick)]
-        rows = fields.owned_rows(self.dec.grid, gz, self.nbricks)
-        self.rows = {d: torch.from_numpy(rows).to(d) for d in self.devices}
-        # (card, slot) of each rank in ravel order: the cards in order,
-        # each holding its ranks in order
-        self.places = [(c, s) for c, t in enumerate(cards)
-                       for s in range(t.shape[0])]
-        if len(self.places) != cell.ranks:
-            raise ValueError(f"{len(self.places)} ranks in the state, the "
-                             f"mesh has {cell.ranks}")
-
-    def cards(self, x) -> list:
-        """Per card, the ``[ranks, nbricks, *brick]`` tensor of state
-        ``x``."""
-        return [x.unsqueeze(0)] if self.single else list(x)
-
-    def storage(self, field_: torch.Tensor) -> list:
-        """The state (per card) that holds the global ``field_``: each
-        rank's owned bricks, zero ghosts."""
-        out = []
-        for c, dev in enumerate(self.devices):
-            ranks = [r for r, (cc, _s) in enumerate(self.places) if cc == c]
-            out.append(torch.stack([fields.to_storage(
-                fields.rank_block(field_, np.unravel_index(r, self.cell.mesh),
-                                  self.cell.domain).to(dev),
-                self.rows[dev], self.cell.brick, self.nbricks)
-                for r in ranks]))
-        return out
-
-    def block(self, cards: list, rank: int) -> torch.Tensor:
-        """Rank ``rank``'s dense owned block from per-card storage."""
-        c, s = self.places[rank]
-        return fields.from_storage(cards[c][s], self.rows[self.devices[c]],
-                                   self.cell.brick, self.cell.domain)
-
-    def sync(self) -> None:
-        for d in self.devices:
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
 
 
 class Loop:
     """The closed loop of runs over ``system``'s step (module docstring)."""
 
-    def __init__(self, system: System, seed: int, clock: StepClock):
+    def __init__(self, system, seed: int, clock: StepClock):
         t = system.cell.traffic
         self.sys, self.seed, self.clock = system, seed, clock
         self.R, self.P, self.S = (int(t["problem_steps"]), int(t["fields"]),
@@ -205,11 +135,12 @@ def process_age() -> float | None:
 
 
 def bound_s(cell: Cell) -> float:
-    """One card's least step time by the cell's shapes (its ranks)."""
-    nbytes, flops = roofline.step_work(cell.domain, cell.ghost,
+    """One card's least step time by the cell's shapes: the work of one
+    subdomain times the subdomains its ranks hold."""
+    nbytes, flops = roofline.step_work(cell.subdomain, cell.ghost,
                                        len(cell.taps),
                                        int(cell.config["st_iter"]))
-    per_card = cell.ranks / max(cell.chips, 1)
+    per_card = cell.ranks * cell.subdomains_per_rank / max(cell.chips, 1)
     return roofline.bound(nbytes * per_card, flops * per_card)[0]
 
 
@@ -218,11 +149,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
              wrap=None, log=print) -> tuple[Record, dict]:
     """Run ``cell``: set-up, the measured window and (``traced``) the
     host stretch and the profiler window; then free the program's state
-    and check the kept answers.  ``wrap(system)`` may replace
-    ``system.step`` (the tests' faults).  Returns the record and the
-    check (:func:`check`)."""
+    and check the kept answers.  The program is the adapter that the
+    cell's configuration names (:func:`~brickbench.cell.build_system`).
+    ``wrap(system)`` may replace ``system.step`` (the tests' faults).
+    Returns the record and the check (:func:`check`)."""
     t_begin = time.perf_counter() if t_begin is None else t_begin
-    system = System(cell, device)
+    system = build_system(cell, device)
     if wrap is not None:
         wrap(system)
     cuda = all(d.type == "cuda" for d in system.devices)
@@ -275,9 +207,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     return rec, result
 
 
-def check(system: System, keep: list, kept: list, seed: int) -> dict:
+def check(system, keep: list, kept: list, seed: int) -> dict:
     """Compare every kept answer with the reference: ``rel_err`` (the
-    worst relative gap over the answers and ranks, and its limit),
+    worst relative gap over the answers and slots, and its limit),
     ``answers`` compared, ``failed`` over the limit, and ``ok``."""
     cell = system.cell
     iters = int(cell.traffic["problem_steps"]) * int(cell.config["st_iter"])
@@ -289,10 +221,9 @@ def check(system: System, keep: list, kept: list, seed: int) -> dict:
         want = reference.iterate(fields.draw_field(
             cell.global_domain, seed, p, system.devices[0]), cell.taps, iters)
         err = 0.0
-        for r in range(cell.ranks):
-            got = system.block(keep[slot], r).to(want.device)
-            exp = fields.rank_block(want, np.unravel_index(r, cell.mesh),
-                                    cell.domain)
+        for i, coords in enumerate(system.coords):
+            got = system.block(keep[slot], i).to(want.device)
+            exp = fields.rank_block(want, coords, cell.subdomain)
             err = max(err, reference.rel_err(got, exp))
             del got
         del want

@@ -6,8 +6,8 @@ The harness's traced window runs with the program's tracing off, as it
 always has.  So these metrics come from a pass of their own over the same
 cell, made once per record after the run, when the run's state is freed:
 
-1. the step is built again (:class:`~brickbench.harness.System`) with the
-   program's tracing on: the ``bricklib.plan`` spans;
+1. the step is built again (:func:`~brickbench.cell.build_system`) with
+   the program's tracing on: the ``bricklib.plan`` spans;
 2. the harness's warm-up (two runs), tracing still on: the first step's
    ``bricklib.plan.kernels``;
 3. the traffic's ``trace_steps`` steps of the harness's loop, with its
@@ -34,6 +34,7 @@ import tempfile
 from dataclasses import dataclass, field
 
 from . import trace
+from .cell import build_system
 from .timing import StepClock
 
 PREFIX, PLAN = "bricklib.", "bricklib.plan"
@@ -78,12 +79,12 @@ def _measure(rec) -> ProgramTrace | None:
         from bricklib_tpu_torch import trace as program
     except ImportError:
         return None
-    from .harness import Loop, System
+    from .harness import Loop
 
     cuda = rec.memory_peak_bytes > 0
     program.records()
     with program.tracing():
-        system = System(rec.cell, "cuda" if cuda else "cpu")
+        system = build_system(rec.cell, "cuda" if cuda else "cpu")
         plan = program.records()
         loop = Loop(system, 0, StepClock(system.devices))
         loop.run(steps=2 * loop.R, sample=False)

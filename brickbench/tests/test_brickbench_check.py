@@ -63,7 +63,7 @@ def test_fault_is_caught(root, name, fault):
     """With the timed path broken underneath, ``correct`` is false."""
     cell = tiny.cell(root, name)
     if fault == "no_exchange":
-        with faults.no_exchange():
+        with faults.no_exchange(cell):
             _rec, chk = run_cell(cell, SEED, 0.5, False, device="cpu",
                                  log=_quiet)
     else:

@@ -108,7 +108,7 @@ def test_new_cell_by_files_alone(tmp_path):
     files and entries only: the harness loads and runs the cell and
     reads the metric."""
     root = tmp_path / "bench"
-    for d in ("configs", "stencils", "metrics"):
+    for d in ("configs", "stencils", "metrics", "systems"):
         shutil.copytree(HERE / d, root / d)
     cfg = json.loads((HERE / "configs" / "weak3d-s7pt.json").read_text())
     cfg.update(name="weak3d-s7pt-st4", st_iter=4)

@@ -16,8 +16,8 @@ import json
 import sys
 
 from . import trace
-from .cell import load_cell
-from .harness import Loop, System
+from .cell import build_system, load_cell
+from .harness import Loop
 from .timing import StepClock
 
 
@@ -26,7 +26,7 @@ def measure(cell, turns: int, device: str = "cuda") -> dict:
     turn's step calls and the idle share of each turn's profiled window."""
     from bricklib_tpu_torch import trace as program
 
-    system = System(cell, device)
+    system = build_system(cell, device)
     loop = Loop(system, 0, StepClock(system.devices))
     loop.run(steps=2 * loop.R, sample=False)
     system.sync()
