@@ -38,9 +38,9 @@ _I64 = ctypes.c_longlong
 
 # argtypes of every C entry point: pointers and the stream as c_void_p
 SIGNATURES = {
-    "bt_pencil_sweep": [_VOID] * 4 + [_INT] * 30
+    "bt_pencil_sweep": [_VOID] * 4 + [_INT] * 33
                        + [_VOID, _VOID, _INT, _INT, _VOID],
-    "bt_pencil_sweep_regstream": [_VOID] * 4 + [_INT] * 25
+    "bt_pencil_sweep_regstream": [_VOID] * 4 + [_INT] * 28
                                  + [_VOID, _VOID, _INT, _VOID],
     "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 33
                           + [_VOID, _VOID, _INT, _INT, _VOID],

@@ -24,6 +24,14 @@ and kernel K1 (``csrc/pencil_sweep.cu``, launched as
 strong-scaling layout): subdomain ``s`` reads and writes through the same
 table with ``s * batch_stride`` added to every brick id.
 
+An i-bricked table ``T[GK, GJ, GI]`` (GI > 1, cubic subdomains) has
+bricks of ``BI`` lanes along i as well, ``i_ghost`` rings of them in i:
+level 0 at lane i reads brick column ``clip(i // BI)`` at ``i % BI``, as
+in k and j; every level shrinks by the radius in i with no clamp, as in j
+(nothing wraps); level F is written to the bricks ``T[K0:K1, J0:J1,
+I0:I1]``, ``i_range`` (default: the i-ghost ring skipped; ``(0, GI)``:
+the ghost-inclusive sweep, reading past the table as the reference pads).
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches K1
 or raises.  The TPU scheduling arguments (``tile_j``, ``lookahead``,
 ``wait_late``, ``j_shift``, ``vmem_limit_bytes``, ``interpret``) are
@@ -75,7 +83,7 @@ STREAM_LAYOUTS = ("s7pt", "mpi125pt")
 # column) items a thread owns (every level's last two planes of two items
 # take the 128 registers a thread that one block an SM leaves)
 REGSTREAM_FUSE = (2, 3, 4)
-REGSTREAM_ROW_WIDTHS = (40, 72)
+REGSTREAM_ROW_WIDTHS = (40, 72, 80)
 REGSTREAM_THREADS, REGSTREAM_ITEMS = 512, 2
 # its planner's costs of an SM's step, in items of one level: a fixed part
 # (the barrier, level 0's loads and issue, the output rows), a part per
@@ -139,7 +147,7 @@ class StreamPlan:
 
     @property
     def nchunk(self) -> int:
-        (K0, K1), _ = self.ranges
+        (K0, K1) = self.ranges[0]
         return -(-(K1 - K0) // self.kch)
 
     @property
@@ -149,7 +157,11 @@ class StreamPlan:
 
     @property
     def nit(self) -> int:
-        return self.bdims[2] // self.ti
+        """i tiles: ``ti`` divides a pencil's lanes; on an i-bricked table
+        the last tile may end past the written lanes (its blocks write
+        none of those)."""
+        i0, i1 = lane_span(self.bdims, self.ranges)
+        return -(-(i1 - i0) // self.ti)
 
     @property
     def nstream(self) -> int:
@@ -166,7 +178,8 @@ class StreamPlan:
         decodes it: ``(subdomain, (k0, k1), (j0, j1), (i0, i1), edges)``
         in brick rows, pencils and i lanes; ``edges`` names the table
         edges ("low", "high") the block's chunk handles."""
-        (K0, K1), (J0, J1) = self.ranges
+        (K0, K1), (J0, J1) = self.ranges[:2]
+        i0, i1 = lane_span(self.bdims, self.ranges)
         out = []
         for b in range(self.nstream):
             it, b = b % self.nit, b // self.nit
@@ -178,7 +191,8 @@ class StreamPlan:
                                     and ch == self.nchunk - 1))
             out.append((sub, (k0, min(k0 + self.kch, K1)),
                         (j0, min(j0 + self.pj, J1)),
-                        (it * self.ti, (it + 1) * self.ti), edges))
+                        (i0 + it * self.ti, min(i0 + (it + 1) * self.ti,
+                                                i1)), edges))
         return out
 
 
@@ -193,8 +207,32 @@ def stash_floats(bdims, fuse: int, lo, hi, pj: int, ti: int,
     return lo[0] * sum(per), hi[0] * sum(per)
 
 
+def lane_span(bdims, ranges) -> tuple[int, int]:
+    """A sweep's output i lanes: the pencil brick's, or on an i-bricked
+    table (a third range) the written i bricks'."""
+    if len(ranges) > 2:
+        return ranges[2][0] * bdims[2], ranges[2][1] * bdims[2]
+    return 0, bdims[2]
+
+
+def ib_cols(lanes: int, bi: int) -> int:
+    """Brick columns a run of ``lanes`` lanes may touch on an i-bricked
+    table, starting anywhere in a brick of ``bi`` lanes (``ib_cols`` in
+    ``pencil_stream.cuh``)."""
+    return -(-lanes // bi) + 1
+
+
+def brick_cols(bdims, ti: int, h: int, ib: bool) -> tuple[int, int]:
+    """Brick columns a block's tables keep per (brick row, pencil): a
+    level-0 row's (``ti + 2h`` lanes) and an output row's (``ti``); one
+    each on the pencil layout."""
+    if not ib:
+        return 1, 1
+    return ib_cols(ti + 2 * h, bdims[2]), ib_cols(ti, bdims[2])
+
+
 def stream_smem(bdims, fuse: int, lo, hi, kch: int, pj: int, ti: int,
-                h: int, d: int, skew: int = 0) -> int:
+                h: int, d: int, skew: int = 0, ib: bool = False) -> int:
     """Dynamic shared memory of one k-streaming block, laid out as
     ``pencil_stream.cuh`` lays it out: the level-0 ring (``rk + 1 + d``
     planes), the rings of levels 1 to F-1 (``rk + 1`` planes each, one
@@ -202,17 +240,19 @@ def stream_smem(bdims, fuse: int, lo, hi, kch: int, pj: int, ti: int,
     plane ``(pj * BJ + (F - f) * rj)`` rows of ``ti + 2h`` floats, ``h``
     floats before them and :func:`stream_slack` after, the count rounded
     up to even; then the brick table (``(kch + 2) x (pj + 2)`` 64-bit
-    offsets), two ints per level-0 row and two buffers of ``pj * BJ``
-    64-bit output row offsets."""
+    offsets, times a level-0 row's brick columns on an i-bricked table,
+    ``ib``), two ints per level-0 row and two buffers of ``pj * BJ``
+    64-bit output row offsets (times an output row's brick columns)."""
     _, BJ, _ = bdims
     rk, rj = lo[0] + hi[0], lo[1] + hi[1]
     rw, wjm = ti + 2 * h, pj * BJ
+    nibm, nob = brick_cols(bdims, ti, h, ib)
     n = (rk + 1 + d) * (wjm + fuse * rj) * rw
     n += sum((rk + 1 + (skew >> f & 1)) * (wjm + (fuse - f) * rj) * rw
              for f in range(1, fuse))
     n = (h + n + stream_slack(rw, h, BJ) + 1) & ~1
-    return (4 * n + 8 * (kch + 2) * (pj + 2) + 8 * (wjm + fuse * rj)
-            + 16 * wjm)
+    return (4 * n + 8 * (kch + 2) * (pj + 2) * nibm
+            + 8 * (wjm + fuse * rj) + 16 * wjm * nob)
 
 
 def stream_slack(rw: int, h: int, bj: int) -> int:
@@ -223,12 +263,28 @@ def stream_slack(rw: int, h: int, bj: int) -> int:
     return h + 40 + max(STREAM_ROWS - bj, 0) * rw
 
 
+def tile_widths(bdims, ranges, pw: int) -> list:
+    """The i tiles a planner tries: the divisors of a pencil's lanes that
+    are whole pieces; on an i-bricked table (a third range) the widths
+    that cut the written lanes into n tiles of whole pieces with the
+    least left over, for every n."""
+    BI = bdims[2]
+    if len(ranges) < 3:
+        return [t for t in range(pw, BI + 1, pw) if BI % t == 0]
+    i0, i1 = lane_span(bdims, ranges)
+    return sorted({-(-(i1 - i0) // (n * pw)) * pw
+                   for n in range(1, (i1 - i0) // pw + 1)})
+
+
 @lru_cache(maxsize=256)
 def _stream_plan(bdims, ranges, table_k: int, fuse: int, lo, hi,
                  batch: int, ntaps: int, loads: float | None = None,
                  budget: int = STREAM_SMEM_BUDGET) -> StreamPlan:
     BK, BJ, BI = bdims
-    (K0, K1), (J0, J1) = ranges
+    (K0, K1), (J0, J1) = ranges[:2]
+    ib = len(ranges) > 2
+    i0, i1 = lane_span(bdims, ranges)
+    iw = i1 - i0
     F = fuse
     edge_lo = K0 == 0 and lo[0] > 0
     edge_hi = K1 == table_k and hi[0] > 0
@@ -257,7 +313,7 @@ def _stream_plan(bdims, ranges, table_k: int, fuse: int, lo, hi,
         return -(-rows // STREAM_ROWS) * STREAM_ROWS
 
     best = None
-    for ti in (t for t in range(pw, BI + 1, pw) if BI % t == 0):
+    for ti in tile_widths(bdims, ranges, pw):
         rw = ti + 2 * h
         for pj in range(1, min(npen, MAX_PENCILS) + 1):
             wj = pj * BJ
@@ -271,10 +327,10 @@ def _stream_plan(bdims, ranges, table_k: int, fuse: int, lo, hi,
                                * (L + (F - f) * rk) for f in range(1, F))
                            + quads(wj) * ucf * 32 * L) * per_elem)
                 nblocks = (batch * -(-nrows // kch) * -(-npen // pj)
-                           * (BI // ti))
+                           * -(-iw // ti))
                 for d, skew in ((d, m) for d in lookaheads for m in skews):
                     smem = stream_smem(bdims, F, lo, hi, kch, pj, ti, h, d,
-                                       skew)
+                                       skew, ib)
                     if smem > budget:
                         continue
                     # per step its fixed work and a barrier per unskewed
@@ -316,20 +372,20 @@ class RegStreamPlan(StreamPlan):
 
 
 def regstream_smem(bdims, fuse: int, kch: int, pj: int, rw: int, nq: int,
-                   d: int) -> int:
+                   d: int, cols: tuple = (1, 1)) -> int:
     """Dynamic shared memory of one register-streaming block, laid out as
     ``pencil_regstream.cuh`` lays it out: ``d + 3`` level-0 planes and two
     of each of levels 1 to F-1, every plane ``nq`` quads of 4 rows of
     ``rw`` floats and a pad, the row above the first quad before them and
     ``rw`` floats after, the count rounded up to even; then the brick
     table, two ints per level-0 row and two buffers of the output rows'
-    offsets (as :func:`stream_smem`)."""
+    offsets (as :func:`stream_smem`; ``cols``: :func:`brick_cols`)."""
     wjm = pj * bdims[1]
     pad = (32 - 3 * rw % 32) % 32
     planes = d + 3 + 2 * (fuse - 1)
     n = (rw + pad + planes * nq * (4 * rw + pad) + rw + 1) & ~1
-    return (4 * n + 8 * (kch + 2) * (pj + 2) + 8 * (wjm + 2 * fuse)
-            + 16 * wjm)
+    return (4 * n + 8 * (kch + 2) * (pj + 2) * cols[0]
+            + 8 * (wjm + 2 * fuse) + 16 * wjm * cols[1])
 
 
 def regstream_stash_floats(fuse: int) -> int:
@@ -343,7 +399,10 @@ def regstream_stash_floats(fuse: int) -> int:
 @lru_cache(maxsize=256)
 def _regstream_plan(bdims, ranges, table_k: int, fuse: int, batch: int):
     BK, BJ, BI = bdims
-    (K0, K1), (J0, J1) = ranges
+    (K0, K1), (J0, J1) = ranges[:2]
+    ib = len(ranges) > 2
+    i0, i1 = lane_span(bdims, ranges)
+    iw = i1 - i0
     F = fuse
     edge_lo, edge_hi = K0 == 0, K1 == table_k
     if (F not in REGSTREAM_FUSE or F > BK or F > BJ
@@ -355,7 +414,7 @@ def _regstream_plan(bdims, ranges, table_k: int, fuse: int, batch: int):
     chunks = sorted(c for c in {-(-nrows // n) for n in range(1, nrows + 1)}
                     if (c + 2) * BK + 3 * F < PLANE_SPAN)
     best = None
-    for ti in (t for t in range(pw, BI + 1, pw) if BI % t == 0):
+    for ti in tile_widths(bdims, ranges, pw):
         rw = min((w for w in REGSTREAM_ROW_WIDTHS if w >= ti + 2 * h),
                  default=None)
         if rw is None:
@@ -368,10 +427,11 @@ def _regstream_plan(bdims, ranges, table_k: int, fuse: int, batch: int):
             step = RS_STEP_COST + F * (RS_LEVEL_COST + nq * rw)
             for kch in chunks:
                 nblocks = (batch * -(-nrows // kch) * -(-npen // pj)
-                           * (BI // ti))
+                           * -(-iw // ti))
                 waves = -(-nblocks // SM_COUNT)
                 for d in (2, 1):
-                    smem = regstream_smem(bdims, F, kch, pj, rw, nq, d)
+                    smem = regstream_smem(bdims, F, kch, pj, rw, nq, d,
+                                          brick_cols(bdims, ti, h, ib))
                     if smem > STREAM_SMEM_BUDGET:
                         continue
                     cost = (waves * (kch * BK + 2 * F) * step, -d, -ti, kch)
@@ -411,6 +471,12 @@ class SweepPlan:
     batch: int = 1
     batch_stride: int = 0
     fields: tuple = ()
+
+    @property
+    def ibrick(self) -> bool:
+        """The table has an i axis of bricks (``[GK, GJ, GI]`` for 3-D
+        bricks; ``ranges`` then has a third, i range)."""
+        return self.table.ndim == len(self.bdims)
 
     def written_bricks(self) -> np.ndarray:
         """Storage ids this sweep writes (sorted, unique)."""
@@ -453,18 +519,22 @@ def _is_f32(dtype) -> bool:
 
 
 def _apply_level(srcs: list, plan: SweepPlan) -> torch.Tensor:
-    """One stencil iteration on dense ``[batch, *outer, BI]`` levels, one
+    """One stencil iteration on dense ``[batch, *outer, i]`` levels, one
     per input field; the result is smaller by the radius on each side of
-    every outer axis, periodic in i.  Taps add in tap order."""
+    every outer axis, and of i on an i-bricked table; on the pencil layout
+    it is periodic in i.  Taps add in tap order."""
     lo, hi = plan.lo, plan.hi
     no = len(plan.bdims) - 1
-    sizes = [srcs[0].shape[1 + a] - lo[a] - hi[a] for a in range(no)]
+    ng = plan.table.ndim                     # the axes that shrink
+    sizes = [srcs[0].shape[1 + a] - lo[a] - hi[a] for a in range(ng)]
 
     def shifted(f, offs):
         v = srcs[f][(slice(None),) + tuple(
             slice(lo[a] + offs[a], lo[a] + offs[a] + sizes[a])
-            for a in range(no))]
-        return torch.roll(v, -offs[no], dims=no + 1) if offs[no] else v
+            for a in range(ng))]
+        if ng > no or not offs[no]:
+            return v
+        return torch.roll(v, -offs[no], dims=no + 1)
 
     if plan.taps is None:
         def read_tap(name, offs_edsl):
@@ -489,17 +559,19 @@ def pencil_sweep_plain(x, table: torch.Tensor,
                        plan: SweepPlan) -> torch.Tensor:
     """The plain PyTorch version of kernels K1 (3-D), K4 (4-D) and K12
     (rank 5 and above), on any device: the levels as dense ``[batch,
-    *outer, BI]`` tensors over the output ranges grown by the radius.
-    Level 0 clamps whole bricks at the table edge in every outer axis;
-    after each intermediate level the k rows outside the table take the
-    clamped row's values.  ``x`` is the storage, or for a multi-input
-    stencil (``fuse=1``) one storage per name of ``plan.fields``."""
+    *outer, i]`` tensors over the output ranges grown by the radius.
+    Level 0 clamps whole bricks at the table edge in every outer axis
+    (and in i on an i-bricked table); after each intermediate level the k
+    rows outside the table take the clamped row's values.  ``x`` is the
+    storage, or for a multi-input stencil (``fuse=1``) one storage per
+    name of ``plan.fields``."""
     xs = list(x) if isinstance(x, (list, tuple)) else [x]
     if len(xs) > 1 and plan.fuse != 1:
         raise ValueError("a multi-input sweep applies one level")
     x = xs[0]
     bd = plan.bdims
     no = len(bd) - 1
+    ng = plan.table.ndim                     # the axes read through bricks
     G = plan.table.shape
     F = plan.fuse
     dev = x.device
@@ -509,12 +581,12 @@ def pencil_sweep_plain(x, table: torch.Tensor,
         c = torch.arange(R0 * bd[a] - F * plan.lo[a],
                          R1 * bd[a] + F * plan.hi[a], device=dev)
         b = torch.div(c, bd[a], rounding_mode="floor")
-        shape = [1] * no
+        shape = [1] * ng
         shape[a] = -1
         ids = ids.index_select(a, b.clamp(0, G[a] - 1))
         offs.append((c - b * bd[a]).reshape(shape))
     strides = torch.arange(plan.batch, device=dev) * plan.batch_stride
-    ids = ids[None] + strides.reshape((-1,) + (1,) * no)
+    ids = ids[None] + strides.reshape((-1,) + (1,) * ng)
     levels = [xi[(ids,) + tuple(o[None] for o in offs)] for xi in xs]
     ka = no - 2                              # the k axis among the outer
     BK, GK, K0 = bd[ka], G[ka], plan.ranges[ka][0]
@@ -530,14 +602,14 @@ def pencil_sweep_plain(x, table: torch.Tensor,
         levels = [level]
     counts = [R1 - R0 for R0, R1 in plan.ranges]
     split = [plan.batch]
-    for c, b in zip(counts, bd[:no]):
+    for c, b in zip(counts, bd[:ng]):
         split += [c, b]
-    perm = ([0] + [1 + 2 * a for a in range(no)]
-            + [2 + 2 * a for a in range(no)] + [1 + 2 * no])
-    vals = level.reshape(split + [bd[no]]).permute(perm).reshape(
-        (-1,) + tuple(bd))
+    perm = ([0] + [1 + 2 * a for a in range(ng)]
+            + [2 + 2 * a for a in range(ng)] + [1 + 2 * ng] * (ng == no))
+    vals = level.reshape(split + [bd[no]] * (ng == no)).permute(
+        perm).reshape((-1,) + tuple(bd))
     wids = table[tuple(slice(R0, R1) for R0, R1 in plan.ranges)].long()
-    wids = (wids[None] + strides.reshape((-1,) + (1,) * no)).reshape(-1)
+    wids = (wids[None] + strides.reshape((-1,) + (1,) * ng)).reshape(-1)
     out = torch.empty_like(x)
     out[wids] = vals
     return out
@@ -564,17 +636,37 @@ def _check_k1_args(x: torch.Tensor, table: torch.Tensor,
         raise not_ported("a nonlinear stencil on a CUDA tensor",
                          FEATURES_ITEM)
     BK, BJ, BI = plan.bdims
-    GK, GJ = plan.table.shape
+    shape = tuple(plan.table.shape)
     if (x.dtype != torch.float32 or x.dim() != 4
             or tuple(x.shape[1:]) != (BK, BJ, BI) or not x.is_contiguous()):
         raise ValueError(f"storage must be contiguous float32 [nb, {BK}, "
                          f"{BJ}, {BI}], got {x.dtype} {tuple(x.shape)}")
-    if (table.dtype != torch.int32 or tuple(table.shape) != (GK, GJ)
+    if (table.dtype != torch.int32 or tuple(table.shape) != shape
             or not table.is_contiguous()):
         raise ValueError("table must be contiguous int32 "
-                         f"[{GK}, {GJ}]")
+                         f"{list(shape)}")
     if len(plan.taps.coeffs) > 128:
         raise ValueError("kernel K1 takes at most 128 taps")
+
+
+def _table_args(plan: SweepPlan) -> tuple:
+    """K1's table arguments: ``GK, GJ``, the output ranges in k and j,
+    then ``GI`` and the written i bricks (``0, 0, 0`` on the pencil
+    layout)."""
+    (K0, K1), (J0, J1) = plan.ranges[:2]
+    GK, GJ = plan.table.shape[:2]
+    gi = ((plan.table.shape[2],) + tuple(plan.ranges[2]) if plan.ibrick
+          else (0, 0, 0))
+    return (GK, GJ, K0, K1, J0, J1) + gi
+
+
+def _counted(plan: SweepPlan) -> None:
+    """Count a K1 launch, and on an i-bricked table (either body) also in
+    ``pencil_sweep_kernel.ibrick_launches``: the program's counter
+    ``k1_ibrick``."""
+    pencil_sweep_kernel.launches += 1
+    if plan.ibrick:
+        pencil_sweep_kernel.ibrick_launches += 1
 
 
 def launch_regstream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
@@ -588,8 +680,7 @@ def launch_regstream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
     if rp.nstream > 2 ** 31 - 1:
         raise ValueError("kernel K1 takes at most 2^31 - 1 blocks")
     BK, BJ, BI = plan.bdims
-    GK, GJ = plan.table.shape
-    (K0, K1), (J0, J1) = plan.ranges
+    GK, GJ, K0, K1, J0, J1, GI, I0, I1 = _table_args(plan)
     offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
     coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
     out = torch.empty_like(x)
@@ -599,13 +690,13 @@ def launch_regstream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
     err = _build.library().bt_pencil_sweep_regstream(
         x.data_ptr(), out.data_ptr(), table.data_ptr(),
         None if stash is None else stash.data_ptr(),
-        GK, GJ, BK, BJ, BI, K0, K1, J0, J1, plan.fuse, plan.batch,
-        plan.batch_stride, rp.kch, rp.pj, rp.ti, rp.rw, rp.nq, rp.h, pw,
-        rp.d, int(rp.edge_lo), int(rp.edge_hi), rp.stash_lo, rp.stash_hi,
-        len(coeffs), offs.ctypes.data, coeffs.ctypes.data, rp.smem_bytes,
-        stream)
+        GK, GJ, BK, BJ, BI, K0, K1, J0, J1, GI, I0, I1, plan.fuse,
+        plan.batch, plan.batch_stride, rp.kch, rp.pj, rp.ti, rp.rw, rp.nq,
+        rp.h, pw, rp.d, int(rp.edge_lo), int(rp.edge_hi), rp.stash_lo,
+        rp.stash_hi, len(coeffs), offs.ctypes.data, coeffs.ctypes.data,
+        rp.smem_bytes, stream)
     _build.check(err, "pencil_sweep_regstream")
-    pencil_sweep_kernel.launches += 1
+    _counted(plan)
     launch_regstream.launches += 1
     return out
 
@@ -626,7 +717,7 @@ def _stream_footprint(plan: SweepPlan, kch: int, pj: int, ti: int, d: int,
                       sp.pw, d, sp.edge_lo, sp.edge_hi, lo * sp.edge_lo,
                       hi * sp.edge_hi, skew,
                       stream_smem(plan.bdims, plan.fuse, plan.lo, plan.hi,
-                                  kch, pj, ti, sp.h, d, skew))
+                                  kch, pj, ti, sp.h, d, skew, plan.ibrick))
 
 
 def _launch_stream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
@@ -637,12 +728,11 @@ def _launch_stream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
     layout needs."""
     _check_k1_args(x, table, plan)
     BK, BJ, BI = plan.bdims
-    GK, GJ = plan.table.shape
     sp = (plan.stream() if sp is None
           else _stream_footprint(plan, sp.kch, sp.pj, sp.ti, sp.d, sp.skew))
     if sp.nstream > 2 ** 31 - 1:
         raise ValueError("kernel K1 takes at most 2^31 - 1 blocks")
-    (K0, K1), (J0, J1) = plan.ranges
+    GK, GJ, K0, K1, J0, J1, GI, I0, I1 = _table_args(plan)
     (klo, jlo, ilo), (khi, jhi, ihi) = plan.lo, plan.hi
     offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
     coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
@@ -654,18 +744,19 @@ def _launch_stream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
     err = _build.library().bt_pencil_sweep(
         x.data_ptr(), out.data_ptr(), table.data_ptr(),
         None if stash is None else stash.data_ptr(),
-        GK, GJ, BK, BJ, BI, K0, K1, J0, J1, plan.fuse,
+        GK, GJ, BK, BJ, BI, K0, K1, J0, J1, GI, I0, I1, plan.fuse,
         klo, khi, jlo, jhi, ilo, ihi, plan.batch, plan.batch_stride,
         sp.kch, sp.pj, sp.ti, sp.h, pw, sp.d, int(sp.edge_lo),
         int(sp.edge_hi), sp.stash_lo, sp.stash_hi, sp.skew, len(coeffs),
         offs.ctypes.data, coeffs.ctypes.data, sp.smem_bytes, STREAM_THREADS,
         stream)
     _build.check(err, "pencil_sweep")
-    pencil_sweep_kernel.launches += 1
+    _counted(plan)
     return out
 
 
 pencil_sweep_kernel.launches = 0
+pencil_sweep_kernel.ibrick_launches = 0
 
 # K1's stash per (device, stream), kept between launches: launches on one
 # stream run in order, and a fresh stash per call between the outputs'
@@ -714,7 +805,10 @@ def pencil_sweep(stencil, grid: np.ndarray,
     Arguments and errors follow ``pallas_pencil_sweep``
     (``bricklib_tpu/codegen/pencil_kernel.py:296``); ``batch`` > 1 with
     ``batch_stride`` bricks per subdomain sweeps every subdomain of the
-    stack in one launch.  i-bricked tables, ``inplace``, multi-input
+    stack in one launch.  An i-bricked ``grid`` (``[GK, GJ, GI]``, GI >
+    1) needs ``i_ghost`` >= 1 rings of ghost bricks in i; ``i_range``
+    (half-open brick columns) defaults to skipping them, and ``(0, GI)``
+    sweeps them too (the module's docstring).  ``inplace``, multi-input
     stencils and systems, and bf16 storage raise ``NotImplementedError``;
     a nonlinear stencil runs on CPU tensors only."""
     sdefs = stencil if isinstance(stencil, (list, tuple)) else [stencil]
@@ -740,14 +834,26 @@ def pencil_sweep(stencil, grid: np.ndarray,
                              f"stencil input ({fieldnames})")
     BK, BJ, BI = (int(b) for b in bdims)
     grid = np.asarray(grid)
+    GI = 1
     if grid.ndim == 3:
-        if grid.shape[2] > 1:
-            raise not_ported("i-bricked tables (GI > 1)", FEATURES_ITEM)
-        grid = grid[:, :, 0]
-    if i_range is not None and tuple(i_range) != (0, 1):
+        GI = grid.shape[2]
+        if GI == 1:
+            grid = grid[:, :, 0]
+    ib = GI > 1
+    i_ghost = int(i_ghost)
+    if ib and i_ghost < 1:
+        raise ValueError("i-bricked layouts (GI > 1) need i_ghost >= 1 "
+                         "ghost brick rings in i")
+    if not ib and i_range is not None and tuple(i_range) != (0, 1):
         raise ValueError("i_range applies to i-bricked layouts only")
+    if ib:
+        I0, I1 = ((i_ghost, GI - i_ghost) if i_range is None
+                  else (int(i) for i in i_range))
+        if i_range is not None and not 0 <= I0 < I1 <= GI:
+            raise ValueError(f"i_range {i_range} outside grid i extent "
+                             f"{GI}")
     lo, hi = ir.radius()
-    GK, GJ = grid.shape
+    GK, GJ = grid.shape[:2]
     if k_range is None:
         k_range = (1, GK - 1)
     if j_range is None:
@@ -764,6 +870,8 @@ def pencil_sweep(stencil, grid: np.ndarray,
     stride = int(batch_stride) if batch > 1 else 0
     if lo[0] > BK or hi[0] > BK or lo[1] > BJ or hi[1] > BJ:
         raise ValueError("stencil radius exceeds brick dims")
+    if ib and (lo[2] > BI or hi[2] > BI):
+        raise ValueError("stencil i-radius exceeds brick i width")
     F = int(fuse)
     if F < 1:
         raise ValueError("fuse must be >= 1")
@@ -778,6 +886,15 @@ def pencil_sweep(stencil, grid: np.ndarray,
             raise ValueError(
                 f"fuse {F} x k-radius exceeds the brick row depth "
                 f"(BK={BK})")
+        # a ghost-inclusive range reads one brick past the table (the
+        # reference's padded column), an owned one the ghost bricks
+        pad_lo = int(I0 == 0 and lo[2] > 0) if ib else 0
+        pad_hi = int(I1 == GI and hi[2] > 0) if ib else 0
+        if ib and (F * lo[2] > (I0 + pad_lo) * BI
+                   or F * hi[2] > (GI - I1 + pad_hi) * BI):
+            raise ValueError(
+                f"fuse {F} x i-radius exceeds the i window margin "
+                f"({(I0 + pad_lo) * BI}, {(GI - I1 + pad_hi) * BI})")
     if int(lookahead) < 1:
         raise ValueError("lookahead must be >= 1")
     if j_shift not in ("slice", "roll"):
@@ -791,14 +908,16 @@ def pencil_sweep(stencil, grid: np.ndarray,
 
     plan = SweepPlan(
         bdims=(BK, BJ, BI), table=np.ascontiguousarray(grid, np.int32),
-        ranges=((K0, K1), (J0, J1)), fuse=F,
+        ranges=((K0, K1), (J0, J1)) + (((I0, I1),) if ib else ()), fuse=F,
         lo=tuple(int(v) for v in lo), hi=tuple(int(v) for v in hi),
         taps=(params_from_reference(params, ir) if ir.linear is not None
               else None),
         ir=ir, params=dict(params or {}), batch=batch, batch_stride=stride)
     # the span names the body the card runs (pencil_sweep_kernel's choice)
+    # and the table's layout
     body = "regstream" if plan.regstream() is not None else "stream"
-    return sweep_fn(plan, nbricks, pencil_sweep_kernel, body=body)
+    return sweep_fn(plan, nbricks, pencil_sweep_kernel, body=body,
+                    layout="ibrick" if ib else "pencil")
 
 
 def check_table(plan: SweepPlan, nbricks: int) -> None:

@@ -52,6 +52,16 @@
 // low edge, F - 1 steps around plane KT - BK and its last F - 1 at the
 // high edge).
 //
+// i-bricked tables (IB, cubic strong subdomains; pencil_sweep.cu says what
+// they mean).  Level 0's pieces and the output lanes reach their brick
+// columns through the block's brick table, as in the ring body; two
+// things differ for speed.  The pieces are dealt brick column by brick
+// column (a column's rows in order), so a warp's pieces lie in a few runs
+// of a brick's k-plane, whole rows one after another in X.  And the output
+// rows' offsets, one per row and brick column, are made once a brick row
+// (the in-brick k offset added at the store), in a buffer of the brick
+// row's parity, where per step they would cost a step's fixed part more.
+//
 // Each output's sum is acc = 0; acc += c[t] * x[t] in the star's tap
 // order, as in the ring body: a value read from a register has the bits
 // it has in shared memory, so the two bodies agree bit for bit.
@@ -104,12 +114,16 @@ __host__ __device__ __forceinline__ int rs_ring_floats(const RegGeom& g,
 }
 
 // A block's whole dynamic shared memory: the planes, the brick table, two
-// ints per level-0 row and two buffers of the output rows' offsets.
+// ints per level-0 row and two buffers of the output rows' offsets (on an
+// i-bricked table per brick column, as in the ring body).
 __host__ __device__ __forceinline__ long long rs_smem_bytes(
-    const RegGeom& g, int F, int RW) {
+    const RegGeom& g, int F, int RW, const IBrickGeom ib = IBrickGeom{}) {
     const int WJM = g.PJ * g.BJ;
-    return 4LL * rs_ring_floats(g, F, RW) + 8LL * (g.KCH + 2) * (g.PJ + 2)
-           + 8LL * (WJM + 2 * F) + 16LL * WJM;
+    const int NIBM = ib.GI ? ib_cols(g.TI + 2 * g.H, g.BI) : 1;
+    const int NOB = ib.GI ? ib_cols(g.TI, g.BI) : 1;
+    return 4LL * rs_ring_floats(g, F, RW)
+           + 8LL * (g.KCH + 2) * (g.PJ + 2) * NIBM
+           + 8LL * (WJM + 2 * F) + 16LL * WJM * NOB;
 }
 
 // Stash floats a block keeps per k edge: level f's (F - f) source planes,
@@ -118,13 +132,16 @@ __host__ __device__ __forceinline__ long long rs_stash_floats(int F) {
     return (long long)F * (F - 1) / 2 * BT_RS_THREADS * BT_RS_ITEMS * BT_UR;
 }
 
-template <int F, int RW>
+// IB: the table is i-bricked (ibg; pencil_stream.cuh's stream_block says
+// how level 0 and the output reach the brick columns)
+template <int F, int RW, bool IB>
 __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
                                                 float* __restrict__ out,
                                                 const int* __restrict__ table,
                                                 const RegGeom& g,
                                                 const StarCoeffs& cf, int b,
-                                                float* smem, float* stash) {
+                                                float* smem, float* stash,
+                                                const IBrickGeom ibg) {
     using L = LayoutStar7;
     static_assert(L::R == 1, "the body keeps three planes of a level");
     constexpr int NT = BT_RS_THREADS, M = BT_RS_ITEMS, UR = BT_UR;
@@ -143,32 +160,45 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
     const int P0 = kc0 * BK, P1 = kc1 * BK;
     const int jp0 = g.J0 + jg * g.PJ, jp1 = min(jp0 + g.PJ, g.J1);
     const int jo0 = jp0 * BJ, WJ = (jp1 - jp0) * BJ;
-    const int i0 = it * g.TI;
+    const int i0 = IB ? ibg.IL0 + it * g.TI : it * g.TI;
     const int WJM = g.PJ * BJ;
     const int NJ0 = WJ + 2 * F;         // level-0 rows: F radii each side
     const int nq = (NJ0 + UR - 1) / UR;
     const int PS = g.NQ * QS;           // floats a plane
     const int R0 = g.D + 3;
     const long long brick = (long long)BK * BJ * BI;
+    // i-bricked: a level-0 row's brick columns [ibf, ibf + NIBM), an
+    // output row's [obf, obf + NOB); one each on the pencil layout
+    const int NIBM = IB ? ib_cols(g.TI + 2 * g.H, BI) : 1;
+    const int NOB = IB ? ib_cols(g.TI, BI) : 1;
+    const int ibf = IB ? floor_div(i0 - g.H, BI) : 0;
+    const int obf = IB ? i0 / BI : 0;
 
     // the brick table of brick rows [kbf, kbf + NKB) and pencils [jbf, jbf
-    // + NJB), clamps applied; per level-0 row its pencil and in-brick j
-    // offset; the output rows' offsets, one buffer per step parity
+    // + NJB) (and brick columns [ibf, ibf + NIBM)), clamps applied; per
+    // level-0 row its pencil and in-brick j offset; the output rows'
+    // offsets, one buffer per step parity (on an i-bricked table per brick
+    // column, a buffer per brick row's parity)
     const int NJBM = g.PJ + 2;
     long long* bt = (long long*)(smem + rs_ring_floats(g, F, RW));
-    int* rowinfo = (int*)(bt + (g.KCH + 2) * NJBM);
+    int* rowinfo = (int*)(bt + (g.KCH + 2) * NJBM * NIBM);
     long long* rowofs = (long long*)(rowinfo + 2 * (WJM + 2 * F));
     const int kbf = floor_div(P0 - F, BK);
     const int NKB = floor_div(P1 + F - 1, BK) - kbf + 1;
     const int jbf = floor_div(jo0 - F, BJ);
     const int NJB = floor_div(jo0 + WJ + F - 1, BJ) - jbf + 1;
     const long long bofs = sub * g.stride;
-    for (int e = tid; e < NKB * NJBM; e += NT) {
-        const int a = e / NJBM, c = e - a * NJBM;
-        if (c < NJB)
-            bt[e] = (bofs + table[clamp_int(kbf + a, 0, g.GK - 1) * g.GJ
-                                  + clamp_int(jbf + c, 0, g.GJ - 1)])
-                    * brick;
+    if constexpr (IB) {
+        ib_fill_table(bt, table, tid, NT, NKB, NJBM, NJB, NIBM, kbf, jbf, ibf,
+                      g.GK, g.GJ, ibg.GI, bofs, brick);
+    } else {
+        for (int e = tid; e < NKB * NJBM; e += NT) {
+            const int a = e / NJBM, c = e - a * NJBM;
+            if (c < NJB)
+                bt[e] = (bofs + table[clamp_int(kbf + a, 0, g.GK - 1) * g.GJ
+                                      + clamp_int(jbf + c, 0, g.GJ - 1)])
+                        * brick;
+        }
     }
     for (int r = tid; r < NJ0; r += NT) {
         const int j = jo0 - F + r;
@@ -192,18 +222,48 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
     const int ibase = i0 - g.H;
     const PlaneWalk w0(tid, NT, NP);
     const int npc = (NJ0 * NP - tid + NT - 1) / NT;
+    // On an i-bricked table the plane's pieces are taken brick column by
+    // brick column, a column's rows in order and a row's pieces fastest:
+    // a brick's k-plane is its rows one after another in X, so a warp's
+    // pieces lie in a few runs of whole rows (full cache lines), where
+    // row by row they would touch every brick column of two rows.  The
+    // first column holds n0 pieces of a row (the plane starts inside a
+    // brick), the others PPB, the last what is left.
+    const int PPB = BI / PW;
+    const int n0 = IB ? min(PPB - (ibase - ibf * BI) / PW, NP) : 0;
+    auto rc_of = [&](int e, int& r, int& c) {
+        if (e < NJ0 * n0) {
+            r = e / n0;
+            c = e - r * n0;
+            return;
+        }
+        e -= NJ0 * n0;
+        const int G = e / (NJ0 * PPB);
+        const int c0 = n0 + G * PPB, wdt = min(PPB, NP - c0);
+        const int within = e - G * NJ0 * PPB;
+        r = within / wdt;
+        c = c0 + within - r * wdt;
+    };
     int pcb[BT_RS_PIECES], pco[BT_RS_PIECES], pcs[BT_RS_PIECES];
     {
         PlaneWalk w = w0;
 #pragma unroll
         for (int p = 0; p < BT_RS_PIECES; ++p) {
-            const int r = p < npc ? w.r : 0, c = p < npc ? w.c : 0;
-            int ii = ibase + c * PW;
-            while (ii < 0) ii += BI;
-            while (ii >= BI) ii -= BI;
-            pcb[p] = rowinfo[2 * r];
-            pco[p] = rowinfo[2 * r + 1] + ii;
-            pcs[p] = (r >> 2) * QS + (r & 3) * RW + c * PW;
+            if constexpr (IB) {
+                int r = 0, c = 0;
+                if (p < npc) rc_of(tid + NT * p, r, c);
+                ib_piece(rowinfo, r, ibase + c * PW, BI, NIBM, ibf, pcb[p],
+                         pco[p]);
+                pcs[p] = (r >> 2) * QS + (r & 3) * RW + c * PW;
+            } else {
+                const int r = p < npc ? w.r : 0, c = p < npc ? w.c : 0;
+                int ii = ibase + c * PW;
+                while (ii < 0) ii += BI;
+                while (ii >= BI) ii -= BI;
+                pcb[p] = rowinfo[2 * r];
+                pco[p] = rowinfo[2 * r + 1] + ii;
+                pcs[p] = (r >> 2) * QS + (r & 3) * RW + c * PW;
+            }
             w.next();
         }
     }
@@ -213,7 +273,7 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
     };
     auto issue = [&](int q, int slot) {
         const int kr = brick_row(q);
-        const long long* btrow = bt + kr * NJBM;
+        const long long* btrow = bt + kr * NJBM * NIBM;
         const long long kofs = (long long)(q - (kbf + kr) * BK) * BJ * BI;
         float* dst = planes + slot * PS;
         if (npc <= BT_RS_PIECES) {
@@ -231,12 +291,22 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
         }
         PlaneWalk w = w0;
         for (int e = tid; e < NJ0 * NP; e += NT) {
-            int ii = ibase + w.c * PW;
-            while (ii < 0) ii += BI;
-            while (ii >= BI) ii -= BI;
-            const float* src = x + btrow[rowinfo[2 * w.r]] + kofs
-                               + rowinfo[2 * w.r + 1] + ii;
-            float* d = dst + (w.r >> 2) * QS + (w.r & 3) * RW + w.c * PW;
+            const float* src;
+            float* d;
+            if constexpr (IB) {
+                int pb, po, r, c;
+                rc_of(e, r, c);
+                ib_piece(rowinfo, r, ibase + c * PW, BI, NIBM, ibf, pb, po);
+                src = x + btrow[pb] + kofs + po;
+                d = dst + (r >> 2) * QS + (r & 3) * RW + c * PW;
+            } else {
+                int ii = ibase + w.c * PW;
+                while (ii < 0) ii += BI;
+                while (ii >= BI) ii -= BI;
+                src = x + btrow[rowinfo[2 * w.r]] + kofs
+                      + rowinfo[2 * w.r + 1] + ii;
+                d = dst + (w.r >> 2) * QS + (w.r & 3) * RW + w.c * PW;
+            }
             if (PW == 4)
                 bt_cp_async16(d, src);
             else
@@ -249,6 +319,8 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
     // this thread's items: in-plane offset, whether its quad is in the
     // block's rows, and whether it holds an output (level F's lanes and
     // rows); its first row as an output row, its column as an output lane
+    // (on an i-bricked table: the output lane's brick column, from obf,
+    // and its lane there; a tile may end past the output lanes)
     int ofs[M], orow[M], col[M];
     bool act[M], outp[M];
 #pragma unroll
@@ -261,6 +333,12 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
         col[m] = c - g.H;
         outp[m] = act[m] && col[m] >= 0 && col[m] < g.TI
                   && orow[m] + UR > 0 && orow[m] < WJ;
+        if constexpr (IB) {
+            const int gl = i0 + col[m], ob = outp[m] ? gl / BI : obf;
+            outp[m] = outp[m] && gl < ibg.IL1;
+            orow[m] = orow[m] * NOB + ob - obf;
+            col[m] = gl - ob * BI;
+        }
     }
 
     const int KT = g.GK * BK;
@@ -310,10 +388,23 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
     auto step = [&](int s, auto edge) {
         constexpr bool EDGE = decltype(edge)::value;
         // this step's output rows' offsets in X (the other buffer may still
-        // be read by the previous step's level F)
-        long long* ro = rowofs + (s & 1) * WJM;
+        // be read by the previous step's level F).  On an i-bricked table
+        // one per output row and brick column, at the column's lane 0 of
+        // the brick row's first plane, its buffer that brick row's parity:
+        // it is made once a brick row (the in-brick k offset is added at
+        // the store), and read by the BK steps that output that row's
+        // planes, which end a step before the other row's are made.
+        long long* ro = rowofs + (s & 1) * WJM * NOB;
         const int qF = q00 + s - F;
-        if (qF >= p0 && qF < p1) {
+        if constexpr (IB) {
+            const int kr = qF >= p0 && qF < p1 ? brick_row(qF) : 0;
+            ro = rowofs + (kr & 1) * WJM * NOB;
+            if (qF >= p0 && qF < p1
+                && (qF == p0 || qF == (kbf + kr) * BK)) {
+                ib_fill_rowofs(ro, bt + kr * NJBM * NIBM, rowinfo, tid, NT,
+                               WJ, NOB, F, NIBM, obf, ibf, 0);
+            }
+        } else if (qF >= p0 && qF < p1) {
             const int kr = brick_row(qF);
             const long long* btrow = bt + kr * NJBM;
             const long long kofs = (long long)(qF - (kbf + kr) * BK) * BJ * BI
@@ -430,13 +521,24 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
                 }
                 src = level_plane(f, (s + 1) & 1);
             } else if (valid) {
+                // the output plane's in-brick k offset (i-bricked tables)
+                const int kofs = IB ? (q - (kbf + brick_row(q)) * BK) * BJ * BI
+                                    : 0;
 #pragma unroll
                 for (int m = 0; m < M; ++m) {
                     if (!outp[m]) continue;
 #pragma unroll
-                    for (int u = 0; u < UR; ++u)
-                        if (orow[m] + u >= 0 && orow[m] + u < WJ)
-                            out[ro[orow[m] + u] + col[m]] = nx[m][u];
+                    for (int u = 0; u < UR; ++u) {
+                        if constexpr (IB) {
+                            // orow: (first row) * NOB + brick column
+                            const int r = orow[m] + u * NOB;
+                            if (r >= 0 && r < WJ * NOB)
+                                out[ro[r] + (kofs + col[m])] = nx[m][u];
+                        } else {
+                            if (orow[m] + u >= 0 && orow[m] + u < WJ)
+                                out[ro[orow[m] + u] + col[m]] = nx[m][u];
+                        }
+                    }
                 }
             }
             // level f-1's planes move down one (level 0's ring moves by

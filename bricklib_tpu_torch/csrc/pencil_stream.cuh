@@ -51,7 +51,11 @@
 // Level 0 comes in PW-float pieces (PW = 4: 16-byte cp.async.cg, straight
 // to shared memory without registers), each piece of a row wrapping modulo
 // BI as a whole (BI and H are multiples of PW), so the i wrap costs nothing
-// inside the block: the H-wide margins hold the wrapped lanes.  A 16-byte
+// inside the block: the H-wide margins hold the wrapped lanes (on an
+// i-bricked table, IB, a piece reads the brick column of its lanes through
+// the block's brick table instead, the margins the neighbouring columns',
+// and an output lane goes to its brick column's offset: pencil_sweep.cu
+// says what such a table means).  A 16-byte
 // piece is read through L2 (.cg), never a line of the SM's L1; a 4-byte
 // piece (PW = 1) takes cp.async.ca, through L1, unless CG is set: then it
 // is an __ldcg load and a shared store.  K11 sets CG, since it reads ghost
@@ -85,6 +89,67 @@ struct StreamGeom {
     int stash_lo, stash_hi;             // stash floats per block and edge
     int skew;                           // bit f: levels f, f+1 skewed
 };
+
+// An i-bricked table (GI > 0): its bricks in i and the output lanes [IL0,
+// IL1); all zero on the pencil layout.  The kernels take it as a last
+// argument of its own, so the pencil layout's parameters keep their
+// places.
+struct IBrickGeom {
+    int GI, IL0, IL1;
+};
+
+// Brick columns a run of w lanes may touch on an i-bricked table, starting
+// anywhere in a brick of BI lanes (the host's ib_cols).
+__host__ __device__ __forceinline__ int ib_cols(int w, int BI) {
+    return (w + BI - 1) / BI + 1;
+}
+
+// An i-bricked block's brick table, filled by threads tid, tid + nthr, ...:
+// brick rows [kbf, kbf + NKB), pencils [jbf, jbf + NJB) (NJBM entries a
+// brick row) and brick columns [ibf, ibf + NIBM), each entry the element
+// offset of its (clamped) brick in X, the sub-table of sub at bofs.
+__device__ __forceinline__ void ib_fill_table(
+    long long* bt, const int* __restrict__ table, int tid, int nthr, int NKB,
+    int NJBM, int NJB, int NIBM, int kbf, int jbf, int ibf, int GK, int GJ,
+    int GI, long long bofs, long long brick) {
+    for (int e = tid; e < NKB * NJBM * NIBM; e += nthr) {
+        const int ac = e / NIBM, d = e - ac * NIBM;
+        const int a = ac / NJBM, c = ac - a * NJBM;
+        if (c < NJB)
+            bt[e] = (bofs + table[(clamp_int(kbf + a, 0, GK - 1) * GJ
+                                   + clamp_int(jbf + c, 0, GJ - 1)) * GI
+                                  + clamp_int(ibf + d, 0, GI - 1)])
+                    * brick;
+    }
+}
+
+// Level-0 lane ii (from the block's first brick column ibf's lane 0 at
+// ibf * BI) of level-0 row r, on an i-bricked table: its (pencil, brick
+// column) index in the brick table and its offset in X within the brick
+// row; rowinfo holds each row's pencil and in-brick j offset.
+__device__ __forceinline__ void ib_piece(const int* rowinfo, int r, int ii,
+                                         int BI, int NIBM, int ibf, int& pb,
+                                         int& po) {
+    const int ib = floor_div(ii, BI);
+    pb = rowinfo[2 * r] * NIBM + ib - ibf;
+    po = rowinfo[2 * r + 1] + ii - ib * BI;
+}
+
+// An i-bricked block's output rows' offsets in X, filled by threads tid,
+// tid + nthr, ...: one per output row r < WJ (level-0 row r + rl) and
+// brick column [obf, obf + NOB), at the column's lane 0, plus kofs; btrow
+// is the brick row's part of the brick table.
+__device__ __forceinline__ void ib_fill_rowofs(
+    long long* ro, const long long* btrow, const int* rowinfo, int tid,
+    int nthr, int WJ, int NOB, int rl, int NIBM, int obf, int ibf,
+    long long kofs) {
+    for (int e = tid; e < WJ * NOB; e += nthr) {
+        const int r = e / NOB, ob = e - r * NOB;
+        const int r0 = r + rl;
+        ro[e] = btrow[rowinfo[2 * r0] * NIBM + min(obf + ob - ibf, NIBM - 1)]
+                + kofs + rowinfo[2 * r0 + 1];
+    }
+}
 
 __device__ __forceinline__ void bt_cp_async16(float* dst, const float* src) {
 #ifdef __CUDA_ARCH__
@@ -158,12 +223,17 @@ __host__ __device__ __forceinline__ int stream_ring_floats(
 }
 
 // A block's whole dynamic shared memory: the rings, the brick table, two
-// ints per level-0 row and two buffers of the output rows' offsets.
+// ints per level-0 row and two buffers of the output rows' offsets; on an
+// i-bricked table the brick table keeps a level-0 row's brick columns per
+// (brick row, pencil), and each output row an offset per brick column.
 __host__ __device__ __forceinline__ long long stream_smem_bytes(
-    const StreamGeom& g) {
+    const StreamGeom& g, const IBrickGeom ib = IBrickGeom{}) {
     const int WJM = g.PJ * g.BJ, rj = g.jlo + g.jhi;
-    return 4LL * stream_ring_floats(g) + 8LL * (g.KCH + 2) * (g.PJ + 2)
-           + 8LL * (WJM + g.F * rj) + 16LL * WJM;
+    const int NIBM = ib.GI ? ib_cols(g.TI + 2 * g.H, g.BI) : 1;
+    const int NOB = ib.GI ? ib_cols(g.TI, g.BI) : 1;
+    return 4LL * stream_ring_floats(g)
+           + 8LL * (g.KCH + 2) * (g.PJ + 2) * NIBM
+           + 8LL * (WJM + g.F * rj) + 16LL * WJM * NOB;
 }
 
 // The walk over a (rows x width) plane: element e = tid + nthr*m at (r, c).
@@ -182,14 +252,17 @@ struct PlaneWalk {
 };
 
 // L: the tap layout (tap_layouts.cuh), LayoutRuntime for the generic body;
-// CG: level 0 always through L2 (K11)
-template <class L, bool CG = false>
+// CG: level 0 always through L2 (K11); IB: the table is i-bricked (ibg),
+// else one pencil brick per (k, j) cell
+template <class L, bool CG = false, bool IB = false>
 __device__ __forceinline__ void stream_block(const float* __restrict__ x,
                                              float* __restrict__ out,
                                              const int* __restrict__ table,
                                              const StreamGeom& g,
                                              const SweepTaps& taps, int b,
-                                             float* smem, float* stash) {
+                                             float* smem, float* stash,
+                                             const IBrickGeom ibg =
+                                                 IBrickGeom{}) {
     const int tid = threadIdx.x, nthr = blockDim.x;
     const int it = b % g.nit;
     b /= g.nit;
@@ -206,33 +279,45 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
     const int P0 = kc0 * BK, P1 = kc1 * BK;
     const int jp0 = g.J0 + jg * g.PJ, jp1 = min(jp0 + g.PJ, g.J1);
     const int jo0 = jp0 * BJ, WJ = (jp1 - jp0) * BJ;
-    const int i0 = it * g.TI;
+    const int i0 = IB ? ibg.IL0 + it * g.TI : it * g.TI;
     const int RW = g.TI + 2 * g.H;
     const int WJM = g.PJ * BJ;
     const int NJ0 = WJ + F * rj;
     const int R0 = rk + 1 + g.D;
     const int PS0 = (WJM + F * rj) * RW;
     const long long brick = (long long)BK * BJ * BI;
+    // i-bricked: a level-0 row's brick columns [ibf, ibf + NIBM), an
+    // output row's [obf, obf + NOB); one each on the pencil layout
+    const int NIBM = IB ? ib_cols(RW, BI) : 1;
+    const int NOB = IB ? ib_cols(g.TI, BI) : 1;
+    const int ibf = IB ? floor_div(i0 - g.H, BI) : 0;
+    const int obf = IB ? i0 / BI : 0;
 
     // the block's brick table: brick rows [kbf, kbf + NKB), pencils
-    // [jbf, jbf + NJB), each entry the element offset of its (clamped)
-    // brick in X; then per level-0 row its pencil and in-brick j offset;
-    // then the output rows' offsets in X, one buffer per step parity
+    // [jbf, jbf + NJB) (and brick columns [ibf, ibf + NIBM)), each entry
+    // the element offset of its (clamped) brick in X; then per level-0 row
+    // its pencil and in-brick j offset; then the output rows' offsets in X
+    // (per brick column), one buffer per step parity
     const int NJBM = g.PJ + 2;
     long long* bt = (long long*)(smem + stream_ring_floats(g));
-    int* rowinfo = (int*)(bt + (g.KCH + 2) * NJBM);
+    int* rowinfo = (int*)(bt + (g.KCH + 2) * NJBM * NIBM);
     long long* rowofs = (long long*)(rowinfo + 2 * (WJM + F * rj));
     const int kbf = floor_div(P0 - F * klo, BK);
     const int NKB = floor_div(P1 + F * khi - 1, BK) - kbf + 1;
     const int jbf = floor_div(jo0 - F * jlo, BJ);
     const int NJB = floor_div(jo0 + WJ + F * g.jhi - 1, BJ) - jbf + 1;
     const long long bofs = sub * g.stride;
-    for (int e = tid; e < NKB * NJBM; e += nthr) {
-        const int a = e / NJBM, c = e - a * NJBM;
-        if (c < NJB)
-            bt[e] = (bofs + table[clamp_int(kbf + a, 0, g.GK - 1) * g.GJ
-                                  + clamp_int(jbf + c, 0, g.GJ - 1)])
-                    * brick;
+    if constexpr (IB) {
+        ib_fill_table(bt, table, tid, nthr, NKB, NJBM, NJB, NIBM, kbf, jbf,
+                      ibf, g.GK, g.GJ, ibg.GI, bofs, brick);
+    } else {
+        for (int e = tid; e < NKB * NJBM; e += nthr) {
+            const int a = e / NJBM, c = e - a * NJBM;
+            if (c < NJB)
+                bt[e] = (bofs + table[clamp_int(kbf + a, 0, g.GK - 1) * g.GJ
+                                      + clamp_int(jbf + c, 0, g.GJ - 1)])
+                        * brick;
+        }
     }
     for (int r = tid; r < NJ0; r += nthr) {
         const int j = jo0 - F * jlo + r;
@@ -251,8 +336,10 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
     const int ibase = i0 - g.H;
     const PlaneWalk w0(tid, nthr, NP);
     // this thread's pieces of every plane (at most BT_PIECES; more take
-    // the walk): pencil index in the brick table, offset in X within the
-    // brick row, offset in the ring slot
+    // the walk): (pencil, brick column) index in the brick table, offset
+    // in X within the brick row, offset in the ring slot.  On the pencil
+    // layout a piece wraps modulo BI; on an i-bricked table it lies in the
+    // brick column of its first lane (BI is a multiple of PW)
     constexpr int BT_PIECES = 3;
     const int npc = (NJ0 * NP - tid + nthr - 1) / nthr;
     int pcb[BT_PIECES], pco[BT_PIECES], pcs[BT_PIECES];
@@ -261,11 +348,16 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
 #pragma unroll
         for (int p = 0; p < BT_PIECES; ++p) {
             const int r = p < npc ? w.r : 0, c = p < npc ? w.c : 0;
-            int ii = ibase + c * PW;
-            while (ii < 0) ii += BI;
-            while (ii >= BI) ii -= BI;
-            pcb[p] = rowinfo[2 * r];
-            pco[p] = rowinfo[2 * r + 1] + ii;
+            if constexpr (IB) {
+                ib_piece(rowinfo, r, ibase + c * PW, BI, NIBM, ibf, pcb[p],
+                         pco[p]);
+            } else {
+                int ii = ibase + c * PW;
+                while (ii < 0) ii += BI;
+                while (ii >= BI) ii -= BI;
+                pcb[p] = rowinfo[2 * r];
+                pco[p] = rowinfo[2 * r + 1] + ii;
+            }
             pcs[p] = r * RW + c * PW;
             w.next();
         }
@@ -280,7 +372,7 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
     };
     auto issue = [&](int q, int qb) {
         const int kr = brick_row(q);
-        const long long* btrow = bt + kr * NJBM;
+        const long long* btrow = bt + kr * NJBM * NIBM;
         const long long kofs = (long long)(q - (kbf + kr) * BK) * BJ * BI;
         float* dst = smem + g.H + mod_by(q - qb, R0, inv0) * PS0;
         if (npc <= BT_PIECES) {
@@ -300,11 +392,19 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
         }
         PlaneWalk w = w0;
         for (int e = tid; e < NJ0 * NP; e += nthr) {
-            int ii = ibase + w.c * PW;
-            while (ii < 0) ii += BI;
-            while (ii >= BI) ii -= BI;
-            const float* src = x + btrow[rowinfo[2 * w.r]] + kofs
-                               + rowinfo[2 * w.r + 1] + ii;
+            const float* src;
+            if constexpr (IB) {
+                int pb, po;
+                ib_piece(rowinfo, w.r, ibase + w.c * PW, BI, NIBM, ibf, pb,
+                         po);
+                src = x + btrow[pb] + kofs + po;
+            } else {
+                int ii = ibase + w.c * PW;
+                while (ii < 0) ii += BI;
+                while (ii >= BI) ii -= BI;
+                src = x + btrow[rowinfo[2 * w.r]] + kofs
+                      + rowinfo[2 * w.r + 1] + ii;
+            }
             float* d = dst + w.r * RW + w.c * PW;
             if (PW == 4)
                 bt_cp_async16(d, src);
@@ -377,18 +477,26 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
     }
     for (int s = 0; s < nsteps; ++s) {
         // this step's output rows' offsets in X (the other buffer may still
-        // be read by the previous step's level F)
-        long long* ro = rowofs + (s & 1) * WJM;
+        // be read by the previous step's level F); on an i-bricked table
+        // one per output row and brick column, at the column's lane 0
+        long long* ro = rowofs + (s & 1) * WJM * NOB;
         const int qF = q00 + s - lagF;
         if (qF >= p0 && qF < p1) {
             const int kr = brick_row(qF);
-            const long long* btrow = bt + kr * NJBM;
+            const long long* btrow = bt + kr * NJBM * NIBM;
             const long long kofs = (long long)(qF - (kbf + kr) * BK) * BJ * BI
-                                   + i0;
-            for (int r = tid; r < WJ; r += nthr) {
+                                   + (IB ? 0 : i0);
+            if constexpr (IB) {
                 // output row r is level-0 row r + F*jlo
-                const int r0 = r + F * jlo;
-                ro[r] = btrow[rowinfo[2 * r0]] + kofs + rowinfo[2 * r0 + 1];
+                ib_fill_rowofs(ro, btrow, rowinfo, tid, nthr, WJ, NOB,
+                               F * jlo, NIBM, obf, ibf, kofs);
+            } else {
+                for (int r = tid; r < WJ; r += nthr) {
+                    // output row r is level-0 row r + F*jlo
+                    const int r0 = r + F * jlo;
+                    ro[r] = btrow[rowinfo[2 * r0]] + kofs
+                            + rowinfo[2 * r0 + 1];
+                }
             }
         }
         bt_cp_wait(g.D - 1);
@@ -496,10 +604,22 @@ __device__ __forceinline__ void stream_block(const float* __restrict__ x,
                     for (int itm = warp; itm < nq * cpr; itm += nwarp) {
                         const int r0 = min(BT_UR * w.r, rlast);
                         const int col = 32 * w.c + lane;
-                        rows(r0 * RW + g.H + col, [&](int u, float v) {
-                            if (col < g.TI && r0 + u < WJ)
-                                out[ro[r0 + u] + col] = v;
-                        });
+                        if constexpr (IB) {
+                            // lane i0 + col: its brick column and lane
+                            // there; a tile may end past the output lanes
+                            const int gl = i0 + col, ob = gl / BI;
+                            const int oc = ob - obf, ol = gl - ob * BI;
+                            const bool in = col < g.TI && gl < ibg.IL1;
+                            rows(r0 * RW + g.H + col, [&](int u, float v) {
+                                if (in && r0 + u < WJ)
+                                    out[ro[(r0 + u) * NOB + oc] + ol] = v;
+                            });
+                        } else {
+                            rows(r0 * RW + g.H + col, [&](int u, float v) {
+                                if (col < g.TI && r0 + u < WJ)
+                                    out[ro[r0 + u] + col] = v;
+                            });
+                        }
                         w.next();
                     }
                 }

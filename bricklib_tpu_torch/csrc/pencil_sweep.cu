@@ -1,7 +1,8 @@
 // K1: the fused pencil sweep, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel bricklib_tpu/codegen/pencil_kernel.py:
-// pallas_pencil_sweep (pencil layout, GI == 1, f32, one linear input).
+// pallas_pencil_sweep (f32, one linear input; the pencil layout, GI == 1,
+// and i-bricked tables, GI > 1).
 //
 // What it computes.  Storage X[nb, BK, BJ, BI] is read through the grid
 // table T[GK, GJ] (one pencil brick per (k, j) cell).  Level 0 at element
@@ -15,6 +16,18 @@
 // With a batch of B subdomains (the strong-scaling stack), subdomain s
 // reads and writes through the same table with s * stride added to every
 // brick id.
+//
+// An i-bricked table T[GK, GJ, GI] (cubic subdomains) has bricks of BI
+// lanes in i too: level 0 at lane i reads brick column clip(i/BI) at lane
+// i%BI, as in k and j; the levels shrink in i with no clamp, as in j, and
+// nothing wraps; level F is written to the brick columns [I0, I1).  The
+// block bodies take it as a compile-time choice (IB): a level-0 piece
+// then reads the brick column of its lanes through the block's brick
+// table, which keeps a row's brick columns per (brick row, pencil), and
+// an output lane goes to its brick column's offset, one per output row
+// and column; i tiles start at lane I0*BI, and the last may end past
+// I1*BI (its lanes there are computed and not written).  The pencil
+// layout compiles to the code it had.
 //
 // What bounds it on the card.  Device-memory bytes, in the end: an f32
 // 7-point sweep does 14 flops per 8 bytes moved, far below the ~20
@@ -56,34 +69,51 @@
 
 // One block of 512 threads per SM at most (shared memory allows no more
 // at the planner's footprints), so a thread may hold 128 registers.
-template <class L>
+template <class L, bool IB>
 __global__ void __launch_bounds__(BT_STREAM_THREADS, 1)
 pencil_sweep_kernel(const float* __restrict__ x, float* __restrict__ out,
                     const int* __restrict__ table, float* stash,
-                    StreamGeom g, SweepTaps taps) {
+                    StreamGeom g, SweepTaps taps, IBrickGeom ib) {
     extern __shared__ __align__(16) float smem[];
-    stream_block<L>(x, out, table, g, taps, blockIdx.x, smem, stash);
+    stream_block<L, false, IB>(x, out, table, g, taps, blockIdx.x, smem,
+                               stash, ib);
+}
+
+template <class L, bool IB>
+static cudaError_t launch_ib(int blocks, int threads, int smem_bytes,
+                             cudaStream_t stream, const float* x, float* out,
+                             const int* table, float* stash,
+                             const StreamGeom& g, const SweepTaps& taps,
+                             const IBrickGeom& ib) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pencil_sweep_kernel<L, IB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return err;
+    }
+    pencil_sweep_kernel<L, IB><<<blocks, threads, smem_bytes, stream>>>(
+        x, out, table, stash, g, taps, ib);
+    return cudaGetLastError();
 }
 
 template <class L>
 static cudaError_t launch(int blocks, int threads, int smem_bytes,
                           cudaStream_t stream, const float* x, float* out,
                           const int* table, float* stash,
-                          const StreamGeom& g, const SweepTaps& taps) {
-    cudaError_t err = cudaFuncSetAttribute(
-        pencil_sweep_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) {
-        cudaGetLastError();
-        return err;
-    }
-    pencil_sweep_kernel<L><<<blocks, threads, smem_bytes, stream>>>(
-        x, out, table, stash, g, taps);
-    return cudaGetLastError();
+                          const StreamGeom& g, const SweepTaps& taps,
+                          const IBrickGeom& ib) {
+    if (ib.GI > 0)
+        return launch_ib<L, true>(blocks, threads, smem_bytes, stream, x,
+                                  out, table, stash, g, taps, ib);
+    return launch_ib<L, false>(blocks, threads, smem_bytes, stream, x, out,
+                               table, stash, g, taps, ib);
 }
 
 // Launch arguments: output brick rows [K0, K1) in chunks of KCH, PJ
-// pencils per block, TI lanes, level-0 margin H, piece PW (4 or 1 floats),
+// pencils per block; GI > 0: the table is [GK, GJ, GI] and the output
+// brick columns [I0, I1) (GI = 0: the pencil layout, table [GK, GJ]); TI
+// lanes, level-0 margin H, piece PW (4 or 1 floats),
 // D planes ahead; edge_lo / edge_hi: the first / last chunk reaches below
 // / above the table, and each block keeps stash_lo / stash_hi floats of
 // `stash` for it (batch x pencil groups x i tiles blocks' worth); bit f of
@@ -93,7 +123,8 @@ static cudaError_t launch(int blocks, int threads, int smem_bytes,
 // layout they equal, else the generic one).
 extern "C" int bt_pencil_sweep(const void* x, void* out, const void* table,
                                void* stash, int GK, int GJ, int BK, int BJ,
-                               int BI, int K0, int K1, int J0, int J1, int F,
+                               int BI, int K0, int K1, int J0, int J1,
+                               int GI, int I0, int I1, int F,
                                int klo, int khi, int jlo, int jhi,
                                int ilo, int ihi, int batch, int stride,
                                int KCH, int PJ, int TI, int H, int PW, int D,
@@ -103,8 +134,11 @@ extern "C" int bt_pencil_sweep(const void* x, void* out, const void* table,
                                const float* tap_coeffs, int smem_bytes,
                                int threads, void* stream) {
     const int nrows = K1 - K0, npen = J1 - J0;
+    if (GI < 0 || (GI > 0 && (I0 < 0 || I0 >= I1 || I1 > GI))
+        || (GI == 0 && BI % TI))
+        return (int)cudaErrorInvalidValue;
     if (ntaps < 1 || ntaps > BT_MAX_TAPS || F < 1 || batch < 1
-        || npen < 1 || nrows < 1 || KCH < 1 || PJ < 1 || TI < 1 || BI % TI
+        || npen < 1 || nrows < 1 || KCH < 1 || PJ < 1 || TI < 1
         || (PW != 1 && PW != 4) || BI % PW || TI % PW || H % PW
         || H < F * (ilo > ihi ? ilo : ihi)
         || (D != 1 && D != 2) || stash_lo < 0 || stash_hi < 0
@@ -114,17 +148,19 @@ extern "C" int bt_pencil_sweep(const void* x, void* out, const void* table,
         || threads < 32 || threads > BT_STREAM_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
     const int nchunk = (nrows + KCH - 1) / KCH;
-    const int njg = (npen + PJ - 1) / PJ, nit = BI / TI;
+    const int lanes = GI > 0 ? (I1 - I0) * BI : BI;
+    const int njg = (npen + PJ - 1) / PJ, nit = (lanes + TI - 1) / TI;
     StreamGeom g = {GK, GJ, BK, BJ, BI, K0, K1, KCH, nchunk, J0, J1,
                     PJ, njg, TI, nit, H, PW, D, F, klo, khi, jlo, jhi,
                     ilo, ihi, (long long)stride, edge_lo, edge_hi, stash_lo,
                     stash_hi, skew};
+    const IBrickGeom ib = {GI, I0 * BI, I1 * BI};
     const long long blocks = (long long)batch * nchunk * njg * nit;
     // a chunk's planes, counted from its first brick row, stay below
     // BT_PLANE_SPAN (stream_block's division-free ring slots and rows)
     const long long span = (long long)(KCH + 2) * BK
                            + (long long)F * (klo + khi + 1);
-    if (blocks > 0x7fffffffLL || stream_smem_bytes(g) > smem_bytes
+    if (blocks > 0x7fffffffLL || stream_smem_bytes(g, ib) > smem_bytes
         || span >= BT_PLANE_SPAN)
         return (int)cudaErrorInvalidValue;
     const SweepTaps taps = sweep_taps(ntaps, tap_offsets, tap_coeffs);
@@ -134,11 +170,12 @@ extern "C" int bt_pencil_sweep(const void* x, void* out, const void* table,
     float* sf = (float*)stash;
     if (layout_matches<LayoutStar7>(taps))
         return (int)launch<LayoutStar7>((int)blocks, threads, smem_bytes, st,
-                                        xf, (float*)out, tb, sf, g, taps);
+                                        xf, (float*)out, tb, sf, g, taps,
+                                        ib);
     if (layout_matches<LayoutCube125>(taps))
         return (int)launch<LayoutCube125>((int)blocks, threads, smem_bytes,
                                           st, xf, (float*)out, tb, sf, g,
-                                          taps);
+                                          taps, ib);
     return (int)launch<LayoutRuntime>((int)blocks, threads, smem_bytes, st,
-                                      xf, (float*)out, tb, sf, g, taps);
+                                      xf, (float*)out, tb, sf, g, taps, ib);
 }

@@ -6,29 +6,37 @@ strong/args.cpp:16-26; CLI -d global domain, -s subdomain, -I iterations,
 -v validate).
 
 One step: the strong exchange in place, then ``st_iter / fuse`` batched
-pencil sweeps over every subdomain of every rank of a card (kernel K1,
-one launch per card), ghost-inclusive except the last.  The exchange is
+sweeps over every subdomain of every rank of a card (kernel K1, one
+launch per card), ghost-inclusive except the last.  The exchange is
 ``shift`` (per non-empty (stage, sign) a gather of the face rows and one
 kernel K5 launch per card) or ``remote`` (per stage one kernel K10 launch
 per card, the face rows pushed into the neighbouring rank's ghosts; on a
 mesh whose every axis has one rank it is the staged exchange, as in the
-reference).  Subdomains keep the full global i extent, so i stays
-periodic through the pencils and only k and j exchange.  Reported:
-GStencil/s and ms per step, the step statistics, and the step's ratio to
-a copy of the same storage (kernel K3), as ``bench.py``'s strong leg
-reports it.
+reference).  Reported: GStencil/s and ms per step, the step statistics,
+and the step's ratio to a copy of the same storage (kernel K3), as
+``bench.py``'s strong leg reports it.
 
-``backend="pencil"`` (``"auto"`` picks it) runs pencil subdomains on any
-mesh whose i axis has one rank (the reference's default mesh is
-``2,1,1``; here it is ``1,1,1`` so that the default runs on one card);
-there, cubic subdomains raise ``NotImplementedError`` (ROADMAP.md Queue 1
-item 3(b)).  ``backend="jnp"`` runs the torch oracle on any subdomain
-shape, cubic ones included: bricks a whole brick deep in ghosts on every
-axis, the strong exchange over all three axes, then ``st_iter``
+``backend="pencil"`` (``"auto"`` picks it) takes one of two layouts, as
+the reference does.  Pencil subdomains (``sdom[2] == dom[2]`` on a mesh
+whose i axis has one rank) keep the full global i extent in one brick,
+so i stays periodic through the pencils and only k and j exchange.
+Cubic subdomains (any other, upstream's strong study: 512^3 in 128^3)
+keep the bricks as given with a ghost shell a whole brick deep on every
+axis; the exchange runs over k, j and i (six faces, edges and corners
+through the stages) and K1 sweeps the i-bricked table with ``i_ghost=1``,
+the ghost-inclusive sweeps over its i ghost ring too (``i_range=(0,
+GI)``).  The reference's default mesh is ``2,1,1``; here it is ``1,1,1``
+so that the default runs on one card.  ``backend="jnp"`` runs the torch
+oracle on any subdomain shape: bricks a whole brick deep in ghosts on
+every axis, the strong exchange over all three axes, then ``st_iter``
 ghost-inclusive iterations of one ``brick_apply`` over every subdomain of
 every rank of a card (the reference's ``vmap``).  A mesh's ranks may share
 a card (``devices=["cuda:0"] * 2``); without ``devices`` a mesh of
-several ranks takes one card each.  The
+several ranks takes one card each.  :func:`build_step` opens the
+program's ``bricklib.plan`` span (children ``.decomp``, ``.domain``: the
+host draw of the global domain and every subdomain bricked, vectorised
+per subdomain, and ``.kernels``) and each step a ``bricklib.step`` span
+(its ordinal), as the weak driver does.  The
 sweeps and the twin take ``bench_params()``: the reference driver's
 ``DEFAULT_PARAMS`` lacks the ``coeff`` group that ``s7pt`` reads, and on
 every stencil it can run the two give the same coefficients.  ``--device``
@@ -42,34 +50,32 @@ import argparse
 
 import numpy as np
 
+from .. import trace
 from ..bench.roofline import chain, copy_storage
 from ..bench.timing import mpi_statistics, time_mpi
 from ..codegen.jnp_backend import CardTables, dense_apply, oracle_iterate
-from ..codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
+from ..codegen.pencil_kernel import pencil_sweep
 from ..comm import skin3d_good
 from ..comm.exchange import on_card
 from ..comm.mesh import rank_views, run_mesh, to_state
 from ..comm.strong import (StrongDecomp, strong_exchange,
                            strong_remote_exchange)
-from ..core import compare_arrays, not_ported, random_array
+from ..core import compare_arrays, random_array
 from ..core.setup import from_bricks as from_bricks_np
 from ..core.setup import to_bricks
 from ..stencils import bench_params, stencil_by_name
 from .weak import mesh_label
 
 
-def _check_supported(dom, sdom, mesh_shape, backend, exchange):
+def _check_supported(backend, exchange):
     if exchange not in ("shift", "remote"):
         raise ValueError("exchange is 'shift' (staged gather and copies) or "
                          "'remote' (one-kernel remote copies)")
     if backend not in ("auto", "pencil", "jnp"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend != "jnp" and (sdom[2] != dom[2] or mesh_shape[2] != 1):
-        raise not_ported("cubic strong subdomains (i-bricked sweeps)",
-                         FEATURES_ITEM)
 
 
-def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
+def build_step(dom=(64, 64, 64), sdom=(32, 32, 32), bdim=(4, 4, 8),
                stencil="mpi7pt", st_iter=1, fuse=1, device="cuda",
                mesh_shape=(1, 1, 1), exchange="shift", devices=None,
                backend="pencil"):
@@ -79,53 +85,83 @@ def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
     storage, the plan, and the global domain ``g`` it was cut from (numpy,
     seed 4).  On a mesh of one rank the storage is its ``[nsub, nbricks,
     *bdim]`` stack; on a larger mesh it is the state, one ``[p, nsub,
-    nbricks, *bdim]`` tensor per card (``step.mesh``)."""
+    nbricks, *bdim]`` tensor per card (``step.mesh``).  Planned inside a
+    ``bricklib.plan`` span."""
+    with trace.span(trace.PLAN):
+        return _plan_step(dom, sdom, bdim, stencil, st_iter, fuse, device,
+                          mesh_shape, exchange, devices, backend)
+
+
+def _plan_step(dom, sdom, bdim, stencil, st_iter, fuse, device, mesh_shape,
+               exchange, devices, backend):
     mesh = run_mesh(mesh_shape, device, devices)
     sd = stencil_by_name(stencil)[0]
     lo, hi = sd.radius()
     rad = max(max(lo), max(hi))
-    if backend == "jnp":
-        # a whole brick of ghost on every axis (ref: strong.py:45-46)
+    # the pencil backend's subdomains are cubic (i-bricked) unless each
+    # keeps the whole global i extent on a mesh whose i axis has one rank
+    # (ref: strong.py:41-42)
+    cubic = backend != "jnp" and (int(sdom[2]) != int(dom[2])
+                                  or int(mesh_shape[2]) != 1)
+    if backend == "jnp" or cubic:
+        # a whole brick of ghost on every axis (ref: strong.py:45-53)
         bdim = tuple(int(b) for b in bdim)
         gz = bdim
+        # deep ghosts: every iteration spoils the ghost shell a radius
+        # deeper on every axis, i included
+        if cubic and st_iter * rad > min(bdim):
+            raise ValueError("st_iter x radius exceeds ghost depth")
     else:
         bdim = (int(bdim[0]), int(bdim[1]), int(sdom[2]))
         gz = (bdim[0], bdim[1], 0)
         if st_iter * rad > min(bdim[0], bdim[1]):
             raise ValueError("st_iter x radius exceeds ghost depth")
-        if st_iter % fuse:
-            raise ValueError("st_iter must be a multiple of fuse")
-    plan = StrongDecomp(dom=dom, sdom=sdom, mesh_shape=tuple(mesh_shape),
-                        bdims=bdim, ghost_depth=gz).initialize(skin3d_good)
+    if backend != "jnp" and st_iter % fuse:
+        raise ValueError("st_iter must be a multiple of fuse")
+    with trace.span(trace.PLAN_DECOMP):
+        plan = StrongDecomp(dom=dom, sdom=sdom, mesh_shape=tuple(mesh_shape),
+                            bdims=bdim, ghost_depth=gz).initialize(
+                                skin3d_good)
     sdec = plan.sdec
     nloc, nb = plan.nsub_local, sdec.nbricks
-    g = random_array(tuple(dom), np.float32, seed=4)
-    arrays = []
-    for r in range(mesh.size):
-        c = mesh.coords_of(r)
-        stacked = np.zeros((nloc, nb) + bdim, np.float32)
-        for row in range(nloc):
-            base = [c[a] * plan.local_block[a] + plan.sub_order[row][a]
-                    for a in range(3)]
-            idx = [(np.arange(base[a] * sdom[a] - gz[a],
-                              (base[a] + 1) * sdom[a] + gz[a]) % dom[a])
-                   for a in range(3)]
-            dat = np.zeros((nb, int(np.prod(bdim))), np.float32)
-            to_bricks(g[np.ix_(*idx)], sdec.grid, bdim, dat=dat)
-            dat[sdec.sep_pos[1]:] = 0
-            stacked[row] = dat.reshape((nb,) + bdim)
-        arrays.append(stacked)
-    state = to_state(mesh, arrays)
-    del arrays
+    with trace.span(trace.PLAN_DOMAIN):
+        g = random_array(tuple(dom), np.float32, seed=4)
+        arrays = []
+        for r in range(mesh.size):
+            c = mesh.coords_of(r)
+            stacked = np.zeros((nloc, nb) + bdim, np.float32)
+            for row in range(nloc):
+                base = [c[a] * plan.local_block[a] + plan.sub_order[row][a]
+                        for a in range(3)]
+                idx = [(np.arange(base[a] * sdom[a] - gz[a],
+                                  (base[a] + 1) * sdom[a] + gz[a]) % dom[a])
+                       for a in range(3)]
+                dat = stacked[row].reshape(nb, -1)
+                to_bricks(g[np.ix_(*idx)], sdec.grid, bdim, dat=dat)
+                dat[sdec.sep_pos[1]:] = 0
+            arrays.append(stacked)
+        state = to_state(mesh, arrays)
+        del arrays
+    calls = {"step": 0}
     exchange_fn = (strong_remote_exchange(plan, mesh) if exchange == "remote"
                    else strong_exchange(plan, mesh=mesh))
     if backend == "jnp":
-        step_state = _oracle_step(sd, plan, bdim, st_iter, exchange_fn)
+        step_state = _oracle_step(sd, plan, bdim, st_iter, exchange_fn,
+                                  calls)
         return (_finish(step_state, mesh, exchange_fn, None),
                 _storage(state, mesh), plan, g)
 
-    kgrid = sdec.periodic_grid((2,))
-    GKs, GJs = kgrid.shape[0], kgrid.shape[1]
+    if cubic:
+        # i-bricked sweeps over the decomposition's own table (ref:
+        # strong.py:94-110): the i ghost ring skipped, or swept too
+        grid = sdec.grid
+        GKs, GJs, GIs = grid.shape
+        owned_kw = dict(i_ghost=1)
+        ghost_kw = dict(i_ghost=1, i_range=(0, GIs))
+    else:
+        grid = sdec.periodic_grid((2,))
+        GKs, GJs = grid.shape[:2]
+        owned_kw, ghost_kw = {}, {}
     fkw = dict(fuse=fuse) if fuse > 1 else {}
     by_batch: dict = {}
 
@@ -133,36 +169,40 @@ def build_step(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
         """The owned-only and ghost-inclusive sweeps over ``p`` ranks."""
         if p not in by_batch:
             common = dict(batch=p * nloc, batch_stride=nb, **fkw)
-            by_batch[p] = (
-                pencil_sweep(sd, kgrid, bdim, p * nloc * nb, bench_params(),
-                             **common),
-                pencil_sweep(sd, kgrid, bdim, p * nloc * nb, bench_params(),
-                             k_range=(0, GKs), j_range=(0, GJs), **common)
-                if st_iter > fuse else None)
+            with trace.span(trace.PLAN_KERNELS):
+                by_batch[p] = (
+                    pencil_sweep(sd, grid, bdim, p * nloc * nb,
+                                 bench_params(), **owned_kw, **common),
+                    pencil_sweep(sd, grid, bdim, p * nloc * nb,
+                                 bench_params(), k_range=(0, GKs),
+                                 j_range=(0, GJs), **ghost_kw, **common)
+                    if st_iter > fuse else None)
         return by_batch[p]
 
     nsweeps = st_iter // fuse
 
     def step_state(state):
-        exchange_fn(state)
-        out = []
-        for t in state:
-            sweep_skip, sweep_ghost = sweeps_for(t.shape[0])
-            flat = t.view((-1,) + bdim)
-            with on_card(t.device):
-                for it in range(nsweeps):
-                    last = it == nsweeps - 1
-                    flat = (sweep_skip if (last or sweep_ghost is None)
-                            else sweep_ghost)(flat)
-            out.append(flat.view(t.shape))
-        return out
+        calls["step"] += 1
+        with trace.span(trace.STEP, step=calls["step"]):
+            exchange_fn(state)
+            out = []
+            for t in state:
+                sweep_skip, sweep_ghost = sweeps_for(t.shape[0])
+                flat = t.view((-1,) + bdim)
+                with on_card(t.device):
+                    for it in range(nsweeps):
+                        last = it == nsweeps - 1
+                        flat = (sweep_skip if (last or sweep_ghost is None)
+                                else sweep_ghost)(flat)
+                out.append(flat.view(t.shape))
+            return out
 
     step = _finish(step_state, mesh, exchange_fn,
                    sweeps_for(len(mesh.ranks_on(0)))[::-1])
     return step, _storage(state, mesh), plan, g
 
 
-def _oracle_step(sd, plan, bdim, st_iter, exchange_fn):
+def _oracle_step(sd, plan, bdim, st_iter, exchange_fn, calls):
     """The oracle's step over a state (ref: strong.py:139-143): the
     exchange in place, then ``st_iter`` ghost-inclusive ``brick_apply``
     iterations, one per card over every subdomain of its ranks (the
@@ -171,16 +211,18 @@ def _oracle_step(sd, plan, bdim, st_iter, exchange_fn):
     tables = CardTables(plan.sdec.nbricks, adj=plan.sdec.info.adj)
 
     def step_state(state):
-        exchange_fn(state)
-        out = []
-        for t in state:
-            adj = tables(t.device, t.shape[0] * t.shape[1])["adj"]
-            with on_card(t.device):
-                (v,) = oracle_iterate((sd,), (gname,),
-                                      (t.view((-1,) + bdim),), adj,
-                                      bench_params(), st_iter)
-            out.append(v.view(t.shape))
-        return out
+        calls["step"] += 1
+        with trace.span(trace.STEP, step=calls["step"]):
+            exchange_fn(state)
+            out = []
+            for t in state:
+                adj = tables(t.device, t.shape[0] * t.shape[1])["adj"]
+                with on_card(t.device):
+                    (v,) = oracle_iterate((sd,), (gname,),
+                                          (t.view((-1,) + bdim),), adj,
+                                          bench_params(), st_iter)
+                out.append(v.view(t.shape))
+            return out
 
     return step_state
 
@@ -238,7 +280,7 @@ def validate_step(step, storage, plan, g, stencil, st_iter,
     return True
 
 
-def run(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
+def run(dom=(64, 64, 64), sdom=(32, 32, 32), bdim=(4, 4, 8),
         stencil="mpi7pt", st_iter=1, mesh_shape=(1, 1, 1), iters=25,
         validate=False, backend="auto", fuse=1, exchange="shift",
         device="cuda", devices=None):
@@ -249,7 +291,7 @@ def run(dom=(64, 64, 64), sdom=(32, 32, 64), bdim=(4, 4, 8),
     exchange's kernel launches per step (``exchange_launches``)."""
     dom, sdom = tuple(int(d) for d in dom), tuple(int(d) for d in sdom)
     mesh_shape = tuple(int(m) for m in mesh_shape)
-    _check_supported(dom, sdom, mesh_shape, backend, exchange)
+    _check_supported(backend, exchange)
     backend = "pencil" if backend == "auto" else backend
     step, storage, plan, g = build_step(dom, sdom, bdim, stencil, st_iter,
                                         fuse, device, mesh_shape, exchange,
@@ -315,12 +357,13 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("-d", "--dom", default="64,64,64")
-    p.add_argument("-s", "--sdom", default="32,32,64")
+    p.add_argument("-s", "--sdom", default="32,32,32")
     p.add_argument("-b", "--bdim", default="4,4,8")
     p.add_argument("--stencil", default="mpi7pt")
     p.add_argument("-I", "--st-iter", type=int, default=1)
     p.add_argument("--mesh", default="1,1,1",
-                   help="ranks per axis (i must have one)")
+                   help="ranks per axis (more than one in i: cubic "
+                        "subdomains)")
     p.add_argument("--devices", default=None,
                    help="one device per rank, comma-separated, repeats "
                         "allowed; default: one card per rank")
@@ -328,8 +371,9 @@ def main(argv=None):
     p.add_argument("-v", "--validate", action="store_true")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "jnp", "pencil"],
-                   help="pencil: batched pencil sweeps (auto picks it); "
-                        "jnp: the torch oracle, any subdomain shape")
+                   help="pencil: batched sweeps of kernel K1, pencil or "
+                        "cubic subdomains (auto picks it); jnp: the torch "
+                        "oracle, any subdomain shape")
     p.add_argument("--fuse", type=int, default=1,
                    help="iterations fused per pass over device memory")
     p.add_argument("--exchange", default="shift",

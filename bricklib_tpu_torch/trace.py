@@ -2,16 +2,17 @@
 
 Spans mark the layer boundaries of a step:
 
-- ``bricklib.step``: a weak driver's step (``step``: its ordinal, the
-  request id every span inside it carries);
+- ``bricklib.step``: a step of the weak or the strong driver (``step``:
+  its ordinal, the request id every span inside it carries);
 - ``bricklib.exchange``: every ghost exchange, at the entry of the callable
   :func:`~.comm.exchange.mesh_fn` makes (SHIFT, PUT, shift-remote and the
   strong exchanges);
 - ``bricklib.sweep``: the callable each sweep planner returns (K1, K4, K6,
   K7, K8, K12; K11, exchange and sweep at once, with ``exchange="fused"``),
-  its arguments made once per plan by :func:`sweep_args`;
-- ``bricklib.plan``: the weak driver's set-up, with the children
-  ``bricklib.plan.decomp`` (the decomposition and its tables),
+  its arguments made once per plan by :func:`sweep_args` (K1's also name
+  its ``body`` and its table's ``layout``, ``pencil`` or ``ibrick``);
+- ``bricklib.plan``: the weak or the strong driver's set-up, with the
+  children ``bricklib.plan.decomp`` (the decomposition and its tables),
   ``bricklib.plan.domain`` (the host draw of the domain, bricked, and the
   state on the cards) and ``bricklib.plan.kernels`` (the sweeps' plans,
   made on a step's first call for its batch of ranks).
@@ -28,9 +29,11 @@ takes them.
 
 Counters are plain ints, always on: each kernel's launches (the
 ``launches`` attribute of its wrapper, read where it is), those of K1's
-register-streaming body (``k1_regstream``, each a K1 launch too), the
-``Tensor.copy_`` calls between ranks (``rank_copies``) and the ghost bytes
-the exchanges write (``exchange_bytes``, each byte of the payload once).
+register-streaming body (``k1_regstream``) and of K1 on an i-bricked
+table (``k1_ibrick``: ``pencil_sweep_kernel.ibrick_launches``), each a K1
+launch too, the ``Tensor.copy_`` calls between ranks (``rank_copies``) and
+the ghost bytes the exchanges write (``exchange_bytes``, each byte of the
+payload once).
 :func:`counters` returns a snapshot.
 """
 
@@ -65,11 +68,15 @@ KERNELS = {
     "K11": ("codegen.fused_exchange", "pencil_sweep_fusedx_kernel"),
     "K12": ("codegen.pencil_kernel_nd", "pencil_sweep_nd_kernel"),
 }
-# the launches of a kernel's second body, each one of its kernel's too:
-# name -> (module, wrapper whose ``launches`` counts); no name starts with
-# "K", so a sum over the kernels' counters counts each launch once
+# the launches of a kernel's second body or layout, each one of its
+# kernel's too: name -> (module, wrapper, the wrapper's attribute that
+# counts); no name starts with "K", so a sum over the kernels' counters
+# counts each launch once
 BODIES = {
-    "k1_regstream": ("codegen.pencil_kernel", "launch_regstream"),
+    "k1_regstream": ("codegen.pencil_kernel", "launch_regstream",
+                     "launches"),
+    "k1_ibrick": ("codegen.pencil_kernel", "pencil_sweep_kernel",
+                  "ibrick_launches"),
 }
 
 _on = False
@@ -207,9 +214,9 @@ def counters() -> dict:
     second bodies' (:data:`BODIES`), read from their wrappers, with
     ``rank_copies`` and ``exchange_bytes``."""
     out = {}
-    for k, (mod, fn) in {**KERNELS, **BODIES}.items():
-        m = importlib.import_module(f"{__package__}.{mod}")
-        out[k] = int(getattr(m, fn).launches)
+    for k, (mod, fn, *attr) in {**KERNELS, **BODIES}.items():
+        w = getattr(importlib.import_module(f"{__package__}.{mod}"), fn)
+        out[k] = int(getattr(w, attr[0] if attr else "launches"))
     out.update(_counts)
     return out
 

@@ -11,7 +11,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    K1 (fused pencil sweep, k-streaming blocks) at 32^3 and 512^3 in six
    configurations (the weak step's three s7pt forms; on the periodic table
    s7pt fuse=4 and mpi125pt fuse=1 and fuse=2), batched over the 16
-   subdomains of the strong stack, and where its launch differs most from
+   subdomains of the strong stack and, on i-bricked tables, over the 64
+   cubic 128^3 subdomains of upstream's strong study (bricks 8^3, the
+   ghost-inclusive sweep over the i ghost ring too, and the owned-only
+   one), and where its launch differs most from
    a per-row sweep (both k edges of a non-periodic table at fuse 1 to 4,
    mpi125pt ghost-inclusive at fuse 1 and 2, s27pt through the generic
    body, two brick rows, bricks 96 deep, a batch of 16), K4 (fused 4-D
@@ -32,7 +35,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    abs-or-rel 1e-5 (FMA contraction and summation order); K2 (exchange
    interval copies, every local stage of an exchange in one launch), K3
    (storage copy), K5 (strong exchange stage, on
-   every (stage, sign) of the full strong plan), K9 and K10 (the
+   every (stage, sign) of the full strong plan, pencil and cubic: the
+   latter's i faces too), K9 and K10 (the
    remote-copy exchanges, on every stage of the full weak mesh plan with
    four ranks and the strong mesh plan with two, on cuda:0, and across
    two cards where the machine has them) bit-exact; K11 (the PUT exchange
@@ -51,6 +55,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    mpi9pt, SHIFT exchange + two fuse=2 sweeps, ``drivers.weak``), the
    one-card strong step (512^3 as 16 subdomains of 128x128x512, s7pt,
    strong exchange + two batched fuse=4 sweeps, ``drivers.strong``), the
+   same in upstream's cubic form (512^3 in 64 subdomains of 128^3, bricks
+   8^3: the six-face strong exchange + two batched fuse=4 sweeps on
+   i-bricked tables; the benchmark's cell ``strong-s7pt-512in128``), the
    weak step at 512^3 per rank on mesh (2, 2, 1), four ranks on cuda:0,
    in its three exchange forms (``shift``, ``put``, ``shift-remote`` over
    K9; validated against a ``torch.roll`` twin of the 1024x1024x512
@@ -73,7 +80,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    mesh (1, 1, 1, 1, 2) that ``auto`` must send to the oracle), and the
    5-D sweep K12 through its own entry point ``pencil_sweep_nd``;
 5. checks from the launch counters, set to 0 just before each path and
-   read just after, that each path ran through its kernels;
+   read just after, that each path ran through its kernels (and K1 on
+   i-bricked tables, ``k1_ibrick``, only in the cubic strong path, once a
+   K1 launch there);
 6. times each kernel beside its plain version, the least time the card
    could take for the same work (bytes over 3.35 TB/s or f32 operations
    over 67 TFLOP/s, the larger) and, where one PyTorch call computes the
@@ -108,8 +117,12 @@ K1_TOL = 1e-5
 # (tools/bench_4d.py:55-57), ST_ITER 4 as two fuse=2 sweeps
 DIMS4, BD4, ST4, FUSE4 = (16, 64, 128, 512), (4, 8, 8, 512), 4, 2
 DIMS4_TINY, BD4_TINY = (8, 8, 8, 16), (4, 4, 4, 16)
-# the strong step: bench.py's strong leg, 512^3 as 16 x (128, 128, 512)
+# the strong step: bench.py's strong leg, 512^3 as 16 x (128, 128, 512);
+# and upstream's strong study (the benchmark's strong-s7pt-512in128), 512^3
+# in 64 cubic 128^3 subdomains of 8^3 bricks, a brick of ghost on every
+# axis, K1 on i-bricked tables
 SDOM = (N_BIG // 4, N_BIG // 4, N_BIG)
+SDOM_CUBIC, BD_CUBIC = (N_BIG // 4,) * 3, (8, 8, 8)
 # the 2-D path: bench.py's 2-D leg (bench.py:316-334), 16384^2 as
 # whole-row bricks (32, 16384), one fuse=4 sweep per step
 N2, BY2, ST2, FUSE2 = 16384, 32, 4, 4
@@ -420,36 +433,52 @@ def phase_kernels_4d(err: dict) -> None:
                     err, "K4")
 
 
-def strong_plan(mesh_shape=(1, 1, 1)):
+def strong_plan(mesh_shape=(1, 1, 1), cubic: bool = False):
+    """The strong step's plan: 16 pencil subdomains, or (``cubic``) 64
+    cubic ones with a brick of ghost on every axis."""
     from bricklib_tpu_torch.comm import StrongDecomp, skinlist_by_name
 
-    return StrongDecomp(dom=(N_BIG,) * 3, sdom=SDOM, mesh_shape=mesh_shape,
-                        bdims=(BD_K, BD_J, N_BIG),
-                        ghost_depth=(BD_K, BD_J, 0)).initialize(
+    if cubic:
+        sdom, bd, gz = SDOM_CUBIC, BD_CUBIC, BD_CUBIC
+    else:
+        sdom, bd, gz = SDOM, (BD_K, BD_J, N_BIG), (BD_K, BD_J, 0)
+    return StrongDecomp(dom=(N_BIG,) * 3, sdom=sdom, mesh_shape=mesh_shape,
+                        bdims=bd, ghost_depth=gz).initialize(
         skinlist_by_name("good", 3))
 
 
 def strong_sweeps(plan):
-    """The strong step's two batched K1 sweeps: ghost-inclusive and
-    owned-only, fuse=4 over the 16 subdomains."""
+    """The strong step's two batched K1 sweeps, fuse=4 over every
+    subdomain: ghost-inclusive and owned-only.  Pencil subdomains sweep
+    the table periodic in i; cubic ones their own i-bricked table with
+    ``i_ghost=1``, the ghost-inclusive sweep over its i ghost ring too, as
+    ``drivers.strong`` does."""
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep
     from bricklib_tpu_torch.stencils import bench_params
 
-    kg = plan.sdec.periodic_grid((2,))
     nb, nsub = plan.sdec.nbricks, plan.nsub_local
     kw = dict(batch=nsub, batch_stride=nb, fuse=FUSE)
-    GK, GJ = kg.shape[:2]
-    return [(f"batched x{nsub} fuse=4 ghost-inclusive",
-             pencil_sweep("s7pt", kg, plan.bdims, nsub * nb, bench_params(),
-                          k_range=(0, GK), j_range=(0, GJ), **kw)),
-            (f"batched x{nsub} fuse=4 skip",
-             pencil_sweep("s7pt", kg, plan.bdims, nsub * nb, bench_params(),
-                          **kw))]
+    if plan.ghost_depth[2]:
+        grid, form = plan.sdec.grid, "i-bricked "
+        owned = dict(i_ghost=1)
+        ghost = dict(owned, i_range=(0, grid.shape[2]))
+    else:
+        grid, form = plan.sdec.periodic_grid((2,)), ""
+        owned, ghost = {}, {}
+    GK, GJ = grid.shape[:2]
+    return [(f"{form}batched x{nsub} fuse=4 ghost-inclusive",
+             pencil_sweep("s7pt", grid, plan.bdims, nsub * nb,
+                          bench_params(), k_range=(0, GK), j_range=(0, GJ),
+                          **ghost, **kw)),
+            (f"{form}batched x{nsub} fuse=4 skip",
+             pencil_sweep("s7pt", grid, plan.bdims, nsub * nb,
+                          bench_params(), **owned, **kw))]
 
 
 def phase_kernels_strong(err: dict) -> None:
-    """Batched K1 at the strong shape, and K5 bit-exact on every (stage,
-    sign) of the full strong plan."""
+    """Batched K1 at both strong shapes (16 pencil subdomains; 64 cubic
+    ones, i-bricked), and K5 bit-exact on every (stage, sign) of each full
+    strong plan (the cubic one's i faces too)."""
     import torch
 
     from bricklib_tpu_torch.comm.strong import (stage_copy,
@@ -457,31 +486,36 @@ def phase_kernels_strong(err: dict) -> None:
                                                 strong_stages)
     from bricklib_tpu_torch.core import random_array
 
-    plan = strong_plan()
-    nb, nsub = plan.sdec.nbricks, plan.nsub_local
-    flat = torch.from_numpy(random_array(
-        (nsub * nb,) + tuple(plan.bdims), "float32", 8)).cuda()
-    for name, fn in strong_sweeps(plan):
-        check_sweep(name, fn, flat, err, "K1")
-    a, b = flat.clone(), flat.clone()
-    for st in strong_stages(plan):
-        gather = torch.from_numpy(st.gather).cuda()
-        ra = a.index_select(0, gather) if st.recv_ivs else None
-        rb = b.index_select(0, gather) if st.recv_ivs else None
-        stage_copy(a, st.local_ivs, ra, st.recv_ivs)
-        stage_copy_plain(b, st.local_ivs, rb, st.recv_ivs)
-        torch.cuda.synchronize()
-        same = torch.equal(a, b)
-        rows = sum(d1 - d0 for d0, d1, _, _ in st.local_ivs + st.recv_ivs)
-        print(f"[3 K5 strong stage axis {st.axis} sign {st.sign:+d}] "
-              f"{len(st.local_ivs)} local + {len(st.recv_ivs)} received "
-              f"intervals, {rows} brick rows, "
-              f"{'bit-exact' if same else 'MISMATCH'}")
-        if not same:
-            fail(f"K5 axis {st.axis} sign {st.sign} disagrees with its "
-                 "plain version")
-    if torch.equal(a, flat):
-        fail("the strong exchange moved nothing")
+    for cubic in (False, True):
+        plan = strong_plan(cubic=cubic)
+        nb, nsub = plan.sdec.nbricks, plan.nsub_local
+        form = "cubic" if cubic else "pencil"
+        flat = torch.from_numpy(random_array(
+            (nsub * nb,) + tuple(plan.bdims), "float32", 8)).cuda()
+        for name, fn in strong_sweeps(plan):
+            check_sweep(name, fn, flat, err, "K1")
+        a, b = flat.clone(), flat.clone()
+        for st in strong_stages(plan):
+            gather = torch.from_numpy(st.gather).cuda()
+            ra = a.index_select(0, gather) if st.recv_ivs else None
+            rb = b.index_select(0, gather) if st.recv_ivs else None
+            stage_copy(a, st.local_ivs, ra, st.recv_ivs)
+            stage_copy_plain(b, st.local_ivs, rb, st.recv_ivs)
+            torch.cuda.synchronize()
+            same = torch.equal(a, b)
+            rows = sum(d1 - d0
+                       for d0, d1, _, _ in st.local_ivs + st.recv_ivs)
+            print(f"[3 K5 strong {form} stage axis {st.axis} sign "
+                  f"{st.sign:+d}] {len(st.local_ivs)} local + "
+                  f"{len(st.recv_ivs)} received intervals, {rows} brick "
+                  f"rows, {'bit-exact' if same else 'MISMATCH'}")
+            if not same:
+                fail(f"K5 {form} axis {st.axis} sign {st.sign} disagrees "
+                     "with its plain version")
+        if torch.equal(a, flat):
+            fail(f"the {form} strong exchange moved nothing")
+        del flat, a, b
+        torch.cuda.empty_cache()
     err["K5"] = 0.0
 
 
@@ -1023,22 +1057,32 @@ def drive(name: str, run, want_of):
     """Set every launch count to 0, drive one path, read the counts, and
     fail unless each kernel the path runs (``want_of(result)``: kernel ->
     expected launches, each above 0) launched exactly as expected and the
-    others not at all."""
+    others not at all, and K1 on an i-bricked table (``k1_ibrick``, 0
+    unless the path gives it) as often as expected."""
+    from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
+
     wrappers = counters()
     for w in wrappers.values():
         w.launches = 0
+    pencil_sweep_kernel.ibrick_launches = 0
     t0 = time.perf_counter()
     res = run()
     launches = {k: w.launches for k, w in wrappers.items()}
+    ibrick = pencil_sweep_kernel.ibrick_launches
     path = want_of(res)
     want = {k: path.get(k, 0) for k in wrappers}
+    want_ib = path.get("k1_ibrick", 0)
     print(f"[4 {name}] validated in {time.perf_counter() - t0:.1f} s (host "
           f"clock, build to timing); calls {res['calls']}; launches "
-          f"{launches}; expected {want}")
+          f"{launches}, k1_ibrick {ibrick}; expected {want}, k1_ibrick "
+          f"{want_ib}")
     for k in wrappers:
         if launches[k] != want[k] or path.get(k) == 0:
             fail(f"{name}: {k} launched {launches[k]} times, expected "
                  f"{want[k]}")
+    if ibrick != want_ib:
+        fail(f"{name}: K1 launched {ibrick} times on an i-bricked table, "
+             f"expected {want_ib}")
     return res, launches
 
 
@@ -1077,6 +1121,14 @@ def phase_paths(card: str) -> dict:
             stencil="s7pt", st_iter=ST_ITER, fuse=FUSE, validate=True,
             device="cuda"),
          lambda r: {"K1": (ST_ITER // FUSE) * r["calls"]["step"],
+                    "K5": r["exchange_steps"] * r["calls"]["step"],
+                    "K3": r["calls"]["copy"]}),
+        (f"strong 512^3 in cubic {SDOM_CUBIC[0]}^3", lambda: strong.run(
+            dom=(N_BIG,) * 3, sdom=SDOM_CUBIC, bdim=BD_CUBIC,
+            stencil="s7pt", st_iter=ST_ITER, fuse=FUSE, validate=True,
+            backend="pencil", device="cuda"),
+         lambda r: {"K1": (ST_ITER // FUSE) * r["calls"]["step"],
+                    "k1_ibrick": (ST_ITER // FUSE) * r["calls"]["step"],
                     "K5": r["exchange_steps"] * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
     ] + [

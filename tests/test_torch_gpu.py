@@ -19,7 +19,10 @@ fused into the sweep) must equal the PUT exchange followed by K1 bit for
 bit, and its plain version at abs-or-rel 1e-5 (bit for bit on the
 exchanged storage), on four ranks of one card and across two cards.
 K1's register-streaming body (the star at fuse 2 to 4) must equal its
-ring body and ``fuse`` single-level launches bit for bit.
+ring body and ``fuse`` single-level launches bit for bit.  On i-bricked
+tables (cubic strong subdomains) K1 is compared with its plain version at
+abs-or-rel 1e-5, and its two bodies with each other bit for bit; the
+cubic strong step is validated against the global dense twin.
 """
 
 import dataclasses
@@ -45,6 +48,7 @@ from bricklib_tpu_torch.codegen.mxu_kernel import (launch_mxu,
                                                    pencil_sweep_mxu_plain)
 from bricklib_tpu_torch.codegen.pencil_kernel import (SweepPlan,
                                                       _launch_stream,
+                                                      brick_cols,
                                                       launch_regstream,
                                                       pencil_sweep,
                                                       pencil_sweep_kernel,
@@ -1248,3 +1252,135 @@ def test_regstream_counter_moves_once_per_new_body_launch(cuda):
         assert after["k1_regstream"] - before["k1_regstream"] == 2 * n
         assert after["K1"] - before["K1"] == 2
     torch.cuda.synchronize()
+
+
+def _ib_sweep(stencil, fuse, region, bd=(8, 8, 8), batch=3):
+    """A batched K1 sweep on the i-bricked table of cubic strong
+    subdomains (a 64^3 domain in 32^3 subdomains, a ghost brick a side on
+    every axis): owned-only (the i ghost ring skipped) or ghost-inclusive
+    on every axis (``i_range=(0, GI)``)."""
+    plan = StrongDecomp(dom=(64, 64, 64), sdom=(32, 32, 32),
+                        mesh_shape=(1, 1, 1), bdims=bd,
+                        ghost_depth=bd).initialize(
+        skinlist_by_name("good", 3))
+    grid, nb = plan.sdec.grid, plan.sdec.nbricks
+    GK, GJ, GI = grid.shape
+    kw = (dict(k_range=(0, GK), j_range=(0, GJ), i_range=(0, GI))
+          if region == "ghost" else {})
+    fn = pencil_sweep(stencil, grid, bd, batch * nb, bench_params(),
+                      i_ghost=1, batch=batch, batch_stride=nb, fuse=fuse,
+                      **kw)
+    x = torch.from_numpy(random_array((batch * nb,) + bd, np.float32,
+                                      51 + fuse)).to("cuda")
+    return fn, x
+
+
+def _ib_check(cuda, fn, x, rp=None, sp=None):
+    """K1 on an i-bricked table: the planner's launch (or ``rp`` through
+    the register-streaming body, ``sp`` through the ring body) counts one
+    K1 and one ``k1_ibrick`` launch and matches the plain version on the
+    bricks it writes at abs-or-rel 1e-5 (the card contracts multiply and
+    add into FMAs, the plain version rounds each); where the
+    register-streaming body takes the sweep it equals the ring body bit for
+    bit (both keep each output's tap order)."""
+    plan = fn.plan
+    table = torch.from_numpy(plan.table).to(cuda)
+    before = trace.counters()
+    if rp is not None:
+        got = launch_regstream(x, table, plan, rp)
+    elif sp is not None:
+        got = _launch_stream(x, table, plan, sp)
+    else:
+        got = fn(x)
+    after = trace.counters()
+    assert after["K1"] - before["K1"] == 1
+    assert after["k1_ibrick"] - before["k1_ibrick"] == 1
+    assert after["k1_regstream"] - before["k1_regstream"] == int(
+        rp is not None or (sp is None and plan.regstream() is not None))
+    want = pencil_sweep_plain(x, table, plan)
+    torch.cuda.synchronize()
+    w = torch.from_numpy(plan.written_bricks()).to(cuda)
+    assert compare_arrays(got[w].cpu().numpy(), want[w].cpu().numpy(), 1e-5)
+    if plan.regstream() is not None:
+        ring = _launch_stream(x, table, plan, None)
+        assert torch.equal(got[w], ring[w])
+
+
+@pytest.mark.parametrize("region", ["owned", "ghost"])
+@pytest.mark.parametrize("stencil,fuse", [
+    ("s7pt", 1), ("s7pt", 2), ("s7pt", 3), ("s7pt", 4), ("mpi7pt", 4),
+    ("s27pt", 1), ("s27pt", 2), ("mpi13pt", 2), ("mpi125pt", 1)])
+def test_ibrick_sweep_kernel_matches_plain(cuda, stencil, fuse, region):
+    """K1 on i-bricked tables through its compiled layouts (the star, the
+    cube), its generic body (the box, the 13-point star) and, for the
+    star at fuse 2 to 4, its register-streaming body; owned-only and
+    ghost-inclusive on every axis; three subdomains in the batch."""
+    fn, x = _ib_sweep(stencil, fuse, region)
+    assert fn.plan.ibrick
+    _ib_check(cuda, fn, x)
+
+
+@pytest.mark.parametrize("fuse", [2, 3, 4])
+@pytest.mark.parametrize("region", ["owned", "ghost"])
+def test_ibrick_regstream_ragged_footprints(cuda, region, fuse):
+    """Both bodies on an i-bricked table at footprints whose chunks,
+    pencil groups and i tiles do not divide the ranges (the last i tile
+    ends past the written lanes), at every compiled row width, lookahead 1
+    and 2, and on storage that is not 16-byte aligned (pieces of one
+    float)."""
+    fn, x = _ib_sweep("s7pt", fuse, region, bd=(4, 4, 4), batch=2)
+    plan = fn.plan
+    rp = plan.regstream()
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    odd = flat[1:].view(x.shape)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16 != 0
+    BJ = plan.bdims[1]
+    for kch, pj, ti, d, st_ in ((3, 3, 20, 2, x), (5, 4, 56, 1, x),
+                                (2, 5, 12, 2, odd), (4, 2, 32, 1, odd),
+                                (4, 3, 72, 2, x)):
+        rw = min(w for w in (40, 72, 80) if w >= ti + 2 * rp.h)
+        nq = -(-(pj * BJ + 2 * fuse) // 4)
+        v = dataclasses.replace(
+            rp, kch=kch, pj=pj, ti=ti, rw=rw, nq=nq, d=d,
+            smem_bytes=regstream_smem(plan.bdims, fuse, kch, pj, rw, nq, d,
+                                      brick_cols(plan.bdims, ti, rp.h,
+                                                 True)))
+        _ib_check(cuda, fn, st_, rp=v)
+        sp = dataclasses.replace(
+            plan.stream(), kch=kch, pj=pj, ti=ti, d=d, skew=0)
+        _ib_check(cuda, fn, st_, sp=sp)
+
+
+def test_strong_cubic_step_on_card_validates(cuda):
+    """The cubic strong step on the card (i-bricked K1, the six-face
+    strong exchange) against the global dense twin, and its launches a
+    step: ``st_iter / fuse`` K1 sweeps, each an i-bricked launch of the
+    register-streaming body, and one K5 per (stage, sign)."""
+    kw = dict(dom=(64, 64, 64), sdom=(32, 32, 32), bdim=(8, 8, 8),
+              stencil="s7pt", st_iter=8, fuse=4)
+    step, storage, plan, g = strong.build_step(**kw, device=cuda)
+    assert strong.validate_step(step, storage, plan, g, "s7pt", 8)
+    x = step(storage.clone())
+    torch.cuda.synchronize()
+    before = trace.counters()
+    step(x)
+    after = trace.counters()
+    d = {k: after[k] - before[k] for k in after}
+    assert d["K1"] == d["k1_ibrick"] == d["k1_regstream"] == 2
+    assert d["K5"] == len(step.exchange.stages) == 6
+
+
+@pytest.mark.parametrize("exchange,mesh", [("shift", (2, 1, 1)),
+                                           ("remote", (2, 1, 1)),
+                                           ("remote", (1, 1, 2))])
+def test_strong_cubic_mesh_step_on_card_validates(cuda, exchange, mesh):
+    """Cubic subdomains over two ranks on one card, the i axis split too:
+    the staged exchange (K5) and the remote one (K10) move the six faces
+    between ranks, then the i-bricked sweeps."""
+    kw = dict(dom=(32, 32, 32), sdom=(16, 16, 16), bdim=(4, 4, 4),
+              stencil="s7pt", st_iter=4, fuse=2, mesh_shape=mesh,
+              exchange=exchange)
+    step, state, plan, g = strong.build_step(**kw, devices=[cuda] * 2)
+    assert strong.validate_step(step, state, plan, g, "s7pt", 4, step.mesh)
+    assert step.sweeps[0].plan.ibrick

@@ -469,7 +469,7 @@ def test_regstream_constants_are_the_kernels():
         REGSTREAM_THREADS
     assert int(re.search(r"#define BT_RS_ITEMS (\d+)", head)[1]) == \
         REGSTREAM_ITEMS
-    widths = re.search(r"rs_row_width\(int RW\) \{ return ([^;]*);",
+    widths = re.search(r"rs_row_width\(int RW\) \{\s*return ([^;]*);",
                        body)[1]
     assert tuple(int(w) for w in re.findall(r"RW == (\d+)", widths)) == \
         REGSTREAM_ROW_WIDTHS

@@ -106,6 +106,12 @@ def _bad(name, bd=BD, **kw):
     return (name, grid, bd, 36, bench_params()), kw
 
 
+def _bad3(name, bd=BD, **kw):
+    """As :func:`_bad`, on an i-bricked 6x6x4 table."""
+    grid = np.arange(144, dtype=np.int32).reshape(6, 6, 4)
+    return (name, grid, bd, 144, bench_params()), kw
+
+
 def _port_args(args):
     return (_port_sd(args[0]),) + args[1:]
 
@@ -122,6 +128,12 @@ def _port_args(args):
     _bad("s7pt", tile_j=3),
     _bad("s7pt", i_range=(0, 2)),
     _bad("s7pt", batch=2),
+    _bad3("s7pt"),
+    _bad3("s7pt", i_ghost=1, i_range=(0, 5)),
+    _bad3("s7pt", i_ghost=1, i_range=(2, 2)),
+    _bad3("s7pt", bd=(8, 8, 2), i_ghost=1, fuse=3),
+    _bad3("s7pt", bd=(8, 8, 2), i_ghost=1, i_range=(0, 4), fuse=3),
+    _bad3("mpi13pt", bd=(8, 8, 1), i_ghost=1),
 ])
 def test_invalid_arguments_raise_as_the_reference(args, kw):
     with pytest.raises(ValueError) as ref:
@@ -144,10 +156,15 @@ def test_unported_features_raise(kw):
 
 
 def test_unported_layouts_and_systems_raise():
+    """i-bricked tables run (``tests/test_torch_strong_cubic.py``); one
+    without a ring of i ghost bricks raises as the reference does.
+    Stencil systems stay unported."""
     sd = _port_sd("s7pt")
     grid3 = np.arange(72, dtype=np.int32).reshape(6, 6, 2)
-    with pytest.raises(NotImplementedError, match="i-bricked"):
-        pencil_sweep(sd, grid3, BD, 72, bench_params(), i_ghost=1)
+    with pytest.raises(ValueError, match="i_ghost >= 1"):
+        pencil_sweep(sd, grid3, BD, 72, bench_params())
+    assert pencil_sweep(sd, grid3, BD, 72, bench_params(), i_ghost=1,
+                        i_range=(0, 2)).plan.ibrick
     grid = np.arange(36, dtype=np.int32).reshape(6, 6)
     with pytest.raises(NotImplementedError, match="systems"):
         pencil_sweep([sd, sd], grid, BD, 36, bench_params())
@@ -167,3 +184,29 @@ def test_kernel_refuses_cpu_tensors():
         pencil_sweep_kernel(x, torch.from_numpy(fn.plan.table), fn.plan)
     assert pencil_sweep_kernel.launches == before
 
+
+
+@pytest.mark.parametrize("name,fuse,i_range", [("s7pt", 2, (0, 4)),
+                                               ("mpi13pt", 1, None)])
+def test_ibrick_sweep_matches_reference(name, fuse, i_range):
+    """An i-bricked table (GI = 4, one ghost brick column a side),
+    batched over two subdomains: ghost-inclusive on every axis, and the
+    default ranges (every ghost ring skipped), against the reference."""
+    grid = (np.random.default_rng(3).permutation(64) + 1).reshape(
+        4, 4, 4).astype(np.int32)
+    bd, nb, batch = (4, 4, 4), 66, 2
+    kw = dict(i_ghost=1, i_range=i_range, fuse=fuse, batch=batch,
+              batch_stride=nb)
+    if i_range is not None:
+        kw.update(k_range=(0, 4), j_range=(0, 4))
+    x = random_array((batch * nb,) + bd, np.float32, 8)
+    want = np.asarray(pallas_pencil_sweep(
+        stencil_by_name(name)[0], grid, bd, batch * nb, bench_params(),
+        interpret=True, **kw)(jnp.asarray(x)))
+    fn = pencil_sweep(_port_sd(name), grid, bd, batch * nb,
+                      port_stencils.bench_params(), **kw)
+    got = fn(storage_from_reference(x, "cpu")).numpy()
+    w = fn.plan.written_bricks()
+    assert fn.plan.ibrick and len(w) == batch * (
+        64 if i_range is not None else 8)
+    assert compare_arrays(got[w], want[w], TOL)

@@ -1,9 +1,9 @@
 """The port's tracing module (``bricklib_tpu_torch.trace``) on the CPU:
 off, a span is one shared no-op that records nothing; on, spans nest with
 their parent and step ordinal and appear as ranges in a ``torch.profiler``
-trace; the weak step's spans and counters; the ghost bytes of one
-exchange; and one ``bricklib.sweep`` span per call of every sweep
-planner's callable."""
+trace; the weak step's spans and counters; each launch counter read from
+its wrapper's attribute; the ghost bytes of one exchange; and one
+``bricklib.sweep`` span per call of every sweep planner's callable."""
 
 import json
 import math
@@ -115,6 +115,26 @@ def test_tracing_restores_an_enabled_state():
     with trace.tracing():
         pass
     assert trace.enabled()
+
+
+@pytest.mark.parametrize("name", sorted({**trace.KERNELS, **trace.BODIES}))
+def test_each_counter_reads_its_wrappers_attribute(name):
+    """A launch counter (a kernel's, or K1's register body's or i-bricked
+    layout's) is the attribute of the wrapper its entry names: moving that
+    attribute moves that counter and no other."""
+    import importlib
+
+    mod, fn, *attr = {**trace.KERNELS, **trace.BODIES}[name]
+    w = getattr(importlib.import_module(f"bricklib_tpu_torch.{mod}"), fn)
+    attr = attr[0] if attr else "launches"
+    before = trace.counters()
+    setattr(w, attr, getattr(w, attr) + 3)
+    try:
+        after = trace.counters()
+    finally:
+        setattr(w, attr, getattr(w, attr) - 3)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {name: 3}
 
 
 @pytest.mark.parametrize("nd", [3, 4])
