@@ -44,6 +44,8 @@ SIGNATURES = {
                                  + [_VOID, _VOID, _INT, _VOID],
     "bt_pencil_sweep_4d": [_VOID, _VOID, _VOID] + [_INT] * 33
                           + [_VOID, _VOID, _INT, _INT, _VOID],
+    "bt_pencil_sweep_regstream_4d": [_VOID] * 3 + [_INT] * 26
+                                    + [_VOID, _VOID, _INT, _VOID],
     "bt_pencil_sweep_2d": [_VOID, _VOID, _VOID] + [_INT] * 20
                           + [_VOID] * 4 + [_INT, _INT, _VOID],
     "bt_pencil_sweep_mxu": [_VOID, _VOID, _VOID] + [_INT] * 23

@@ -56,7 +56,8 @@ from .codegen.fused_exchange import pencil_sweep_fusedx
 from .codegen.mxu_kernel import pencil_sweep_mxu
 from .codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
 from .codegen.pencil_kernel_2d import pencil_sweep_2d
-from .codegen.pencil_kernel_4d import pencil_sweep_4d, stream_plan_4d
+from .codegen.pencil_kernel_4d import (pencil_sweep_4d, regstream_plan_4d,
+                                       stream_plan_4d)
 from .comm import BrickDecomp, skinlist_by_name
 from .comm.exchange import on_card, put_plan, shift_exchange
 from .comm.mesh import Mesh, make_domain_mesh, rank_views, to_state
@@ -375,7 +376,7 @@ class Problem:
                              else [len(plan.taps.coeffs)])}
             if plan.taps is not None:
                 sp = ((plan.regstream() or plan.stream()) if nd == 3
-                      else stream_plan_4d(plan))
+                      else regstream_plan_4d(plan) or stream_plan_4d(plan))
                 info["tile_i"], info["smem_bytes"] = sp.ti, sp.smem_bytes
         self.fuse = fuse
         self._make_mesh(device, devices, flat=fused_x)

@@ -171,13 +171,14 @@ int main(int argc, char** argv) {
 
 # per body header: the line that starts level 0's issue, and the barrier
 # the no-barriers form drops with what takes its place (the ring bodies':
-# the one between two levels; the register-streaming body's: its step's)
+# the one between two levels; the register-streaming bodies' (K1's and
+# K4's): their step's)
 ANCHORS = {
-    "pencil_regstream.cuh": (
-        "    auto issue = [&](int q, int slot) {",
-        "        bt_cp_wait(g.D - 1);\n        __syncthreads();\n",
-        "        bt_cp_wait(g.D - 1);\n"),
-}
+    header: ("    auto issue = [&](int q, int slot) {",
+             f"        {wait}(g.D - 1);\n        __syncthreads();\n",
+             f"        {wait}(g.D - 1);\n")
+    for header, wait in (("pencil_regstream.cuh", "bt_cp_wait"),
+                         ("pencil_regstream_4d.cuh", "rs4_cp_wait"))}
 RING_ANCHORS = ("    auto issue = [&](int q, int qb) {",
                 "                if (!((skw >> f) & 1)) __syncthreads();",
                 "")
@@ -185,7 +186,8 @@ RING_ANCHORS = ("    auto issue = [&](int q, int qb) {",
 
 def variants(header: str = "pencil_stream.cuh") -> dict:
     """The four forms of a stream body (``header``: K1's two, or K4's
-    ``pencil_stream_4d.cuh``), each as the header's text."""
+    ``pencil_stream_4d.cuh`` and ``pencil_regstream_4d.cuh``), each as the
+    header's text."""
     base = re.sub(r'#include "(\w+\.cuh)"',
                   lambda m: f'#include "{CSRC / m.group(1)}"',
                   (CSRC / header).read_text())

@@ -236,7 +236,7 @@ def alternate(parent: Path, pairs: int, iters: int, kernel: str,
     ``parent, change, change, parent`` ``pairs`` times; per entry of the
     workers' results, each tree's median, spread (max - min) and runs, and
     for an entry that is not a number (a digest of an output) whether
-    every run of both trees gave the same one."""
+    every run of both trees gave the same one, and this tree's first."""
     runs = {"parent": [], "change": []}
     for _ in range(pairs):
         for who in ("parent", "change", "change", "parent"):
@@ -250,9 +250,9 @@ def alternate(parent: Path, pairs: int, iters: int, kernel: str,
     for name, v0 in runs["change"][0].items():
         if not isinstance(v0, float):
             same = len({t[name] for ts in runs.values() for t in ts}) == 1
-            out[name] = {"same": same}
+            out[name] = {"same": same, "value": v0}
             print(f"[{kernel} {name}] {'equal' if same else 'DIFFERENT'} "
-                  "in every run of both trees", flush=True)
+                  f"in every run of both trees ({v0})", flush=True)
             continue
         row = {}
         for who, ts in runs.items():

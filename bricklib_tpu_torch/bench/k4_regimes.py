@@ -6,10 +6,12 @@
 Each regime is one 4-D pencil sweep at the weak 4-D step's shape
 (16x64x128x512, ``mpi9pt``, bricks (4, 8, 8, 512), ghost (4, 8, 8, 0),
 1,081 bricks): ``fuse=1`` and ``fuse=2`` on the periodic table (does
-fusing pay per iteration?), ``fuse=1`` and
-``fuse=2`` over every brick of the table (ghost-inclusive), ``fuse=2``
-over the owned bricks, and a 4-tap stencil of mixed radii (the generic
-body) ghost-inclusive at ``fuse=2``; each is timed with CUDA events over
+fusing pay per iteration?), ``fuse=1`` to ``fuse=4`` over every brick of
+the table (ghost-inclusive), ``fuse=2`` over the owned bricks, and a
+4-tap stencil of mixed radii (the generic body) ghost-inclusive at
+``fuse=2``; the star at ``fuse=2`` runs K4's register-streaming body
+(``regstream_plan_4d``), the others its ring body.  Each is timed with
+CUDA events over
 ``--iters`` launches after one warm-up.  Besides: the weak 4-D step
 (``drivers.weak.run``, two ``fuse=2`` sweeps and the SHIFT exchange, 25
 timed steps) with its exchange's marginal ms, and the 4-D ``Problem`` at
@@ -23,9 +25,10 @@ parent`` ``--pairs`` times, all on one card; the median and spread (max -
 min) of each regime per tree are printed, and whether every run of both
 trees gave the same digest (the two K4s agree bit for bit).  The processes
 import the package of their own tree.  ``--footprints`` times, in this
-tree only, the planner's launch beside neighbouring footprints (w chunk,
-k brick rows, pencils, i tile, the planner's lookahead and skewed levels)
-of each sweep.  Each regime's bound (bytes or f32 operations at the
+tree only, the planner's launch beside neighbouring footprints of the
+body each sweep runs (ring body: w chunk, k brick rows, pencils, i tile,
+the planner's lookahead and skewed levels; register-streaming body: w
+chunk, k brick rows, pencils, i tile, lookahead).  Each regime's bound (bytes or f32 operations at the
 card's peak rates, counted from its shapes) is printed first.  The last
 line is one JSON object of the results, with the card's name and power
 limit.
@@ -81,6 +84,10 @@ def regimes():
                   sweep("mpi9pt", dec.grid, 1, **ghost)),
                  ("fuse=2 ghost-inclusive",
                   sweep("mpi9pt", dec.grid, 2, **ghost)),
+                 ("fuse=3 ghost-inclusive",
+                  sweep("mpi9pt", dec.grid, 3, **ghost)),
+                 ("fuse=4 ghost-inclusive",
+                  sweep("mpi9pt", dec.grid, 4, **ghost)),
                  ("fuse=2 skip", sweep("mpi9pt", dec.grid, 2)),
                  ("generic taps fuse=2 ghost-inclusive",
                   sweep(mixed_radius(), dec.grid, 2, {}, **ghost))]
@@ -147,12 +154,15 @@ def worker(iters: int) -> dict:
 
 
 def footprints(iters: int) -> dict:
-    """Per regime: the planner's launch and its neighbours, ms each."""
+    """Per regime: the planner's launch and its neighbours, ms each, of
+    the body the regime runs."""
     import torch
 
     from bricklib_tpu_torch.bench.k1_regimes import cuda_ms, storage
     from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
-        K4_SMEM_BUDGET, launch_4d, stream4_footprint, stream_plan_4d)
+        K4_SMEM_BUDGET, REGSTREAM4_THREADS, launch_4d,
+        launch_regstream_4d, regstream4_footprint, regstream_plan_4d,
+        stream4_footprint, stream_plan_4d)
 
     dec, cases = regimes()
     x = storage((dec.nbricks,) + BD, 3)
@@ -160,27 +170,52 @@ def footprints(iters: int) -> dict:
     for name, fn in cases:
         plan = fn.plan
         table = torch.from_numpy(plan.table).cuda()
-        sp = stream_plan_4d(plan)
-        cands = set()
-        for wch in {sp.wch, max(1, sp.wch // 2), 1}:
-            for pk in {sp.pk, 1, 2}:
-                for pj in {sp.pj, 1, 2, 3}:
-                    for ti in {sp.ti, max(sp.pw, sp.ti // 2), 2 * sp.ti}:
-                        for skew in {sp.skew, 0}:
-                            cands.add((wch, pk, pj, ti, sp.d, skew))
+        rp = regstream_plan_4d(plan)
         res = []
-        for wch, pk, pj, ti, d, skew in sorted(cands):
-            if plan.bdims[3] % ti:
-                continue
-            v = stream4_footprint(plan, wch, pk, pj, ti, d, skew)
-            if v.smem_bytes > K4_SMEM_BUDGET:
-                continue
-            ms = cuda_ms(lambda: launch_4d(x, table, plan, v), iters)
-            res.append({"wch": wch, "pk": pk, "pj": pj, "ti": ti, "d": d,
-                        "skew": skew, "smem": v.smem_bytes,
-                        "blocks": v.nstream, "ms": ms,
-                        "planner": (wch, pk, pj, ti, d, skew) == (
-                            sp.wch, sp.pk, sp.pj, sp.ti, sp.d, sp.skew)})
+        if rp is not None:
+            BI = plan.bdims[3]
+            cands = {(rp.wch, rp.pk, rp.pj, rp.ti, rp.rw, rp.d)}
+            for wch in {rp.wch, max(1, rp.wch // 2), 1}:
+                for pk in (1, 2):
+                    for ti in (8, 16, 32):
+                        for d in (1, 2, 3):
+                            cands.add((wch, pk, rp.pj, ti, rp.rw, d))
+            for wch, pk, pj, ti, rw, d in sorted(cands):
+                v = regstream4_footprint(plan, wch, pk, pj, ti, rw, d)
+                smem = v.smem_bytes
+                if (BI % ti or smem > K4_SMEM_BUDGET
+                        or v.items() > REGSTREAM4_THREADS):
+                    continue
+                ms = cuda_ms(lambda: launch_regstream_4d(x, table, plan, v),
+                             iters)
+                res.append({"body": "regstream", "wch": wch, "pk": pk,
+                            "pj": pj, "ti": ti, "rw": rw, "d": d,
+                            "smem": smem, "blocks": v.nstream, "ms": ms,
+                            "planner": v == rp})
+        else:
+            sp = stream_plan_4d(plan)
+            cands = set()
+            for wch in {sp.wch, max(1, sp.wch // 2), 1}:
+                for pk in {sp.pk, 1, 2}:
+                    for pj in {sp.pj, 1, 2, 3}:
+                        for ti in {sp.ti, max(sp.pw, sp.ti // 2),
+                                   2 * sp.ti}:
+                            for skew in {sp.skew, 0}:
+                                cands.add((wch, pk, pj, ti, sp.d, skew))
+            for wch, pk, pj, ti, d, skew in sorted(cands):
+                if plan.bdims[3] % ti:
+                    continue
+                v = stream4_footprint(plan, wch, pk, pj, ti, d, skew)
+                if v.smem_bytes > K4_SMEM_BUDGET:
+                    continue
+                ms = cuda_ms(lambda: launch_4d(x, table, plan, v), iters)
+                res.append({"body": "stream", "wch": wch, "pk": pk,
+                            "pj": pj, "ti": ti, "d": d, "skew": skew,
+                            "smem": v.smem_bytes, "blocks": v.nstream,
+                            "ms": ms,
+                            "planner": (wch, pk, pj, ti, d, skew) == (
+                                sp.wch, sp.pk, sp.pj, sp.ti, sp.d,
+                                sp.skew)})
         res.sort(key=lambda r: r["ms"])
         out[name] = res
         for r in res[:4] + [r for r in res if r["planner"]]:

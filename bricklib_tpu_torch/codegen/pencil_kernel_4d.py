@@ -13,7 +13,9 @@ intermediate levels extend (F - f) radii in w and j with no clamp; their k
 rows beyond the table take the clamped row's values; i is periodic.
 
 :func:`pencil_sweep_4d_plain` (the rank-generic plain sweep) spells these
-rules out as dense tensor code, and kernel K4 (``csrc/pencil_sweep_4d.cu``)
+rules out as dense tensor code, and kernel K4 (``csrc/pencil_sweep_4d.cu``;
+for the 4-D star at ``fuse=2`` its register-streaming body,
+``csrc/pencil_regstream_4d.cu``, where :func:`regstream_plan_4d` plans it)
 reproduces them.  A CPU tensor takes the plain version; a CUDA tensor
 launches K4 or raises.  The TPU scheduling arguments (``tile_j``,
 ``lookahead``, ``vmem_limit_bytes``, ``interpret``) are checked as the
@@ -32,26 +34,45 @@ import torch
 from .. import _build
 from ..core import not_ported
 from .pencil_kernel import (BLOCK_COST, FEATURES_ITEM, LOAD_COST,
-                            MAX_PENCILS, PLANE_SPAN, SM_COUNT, STEP_COST,
-                            STREAM_ROWS, STREAM_SMEM_BUDGET, STREAM_THREADS,
-                            SYNC_COST, SweepPlan, _is_f32, stream_loads,
+                            MAX_PENCILS, PLANE_SPAN, RS_LEVEL_COST,
+                            RS_STEP_COST, SM_COUNT, STEP_COST, STREAM_ROWS,
+                            STREAM_SMEM_BUDGET, STREAM_THREADS, SYNC_COST,
+                            SweepPlan, _is_f32, _layouts, stream_loads,
                             sweep_fn)
 from .pencil_kernel import pencil_sweep_plain as pencil_sweep_4d_plain
 from .taps import as_ir, params_from_reference
 
-__all__ = ["K4_SMEM_BUDGET", "K4_THREADS", "Stream4Plan", "pencil_sweep_4d",
-           "pencil_sweep_4d_kernel", "pencil_sweep_4d_plain", "stream4_smem",
-           "stream_plan_4d"]
+__all__ = ["K4_SMEM_BUDGET", "K4_THREADS", "RegStream4Plan", "Stream4Plan",
+           "launch_regstream_4d", "pencil_sweep_4d", "pencil_sweep_4d_kernel",
+           "pencil_sweep_4d_plain", "regstream4_footprint", "regstream4_smem",
+           "regstream_plan_4d", "stream4_smem", "stream_plan_4d"]
 
-# K4's w-streaming blocks (csrc/pencil_stream_4d.cuh) on the H100: 512
-# threads, one block per SM (a thread may hold 128 registers), up to 227 KB
-# of shared memory a block
+# K4's ring body's w-streaming blocks (csrc/pencil_stream_4d.cuh) on the
+# H100: 512 threads, one block per SM (a thread may hold 128 registers),
+# up to 227 KB of shared memory a block
 K4_THREADS = STREAM_THREADS
 K4_SMEM_BUDGET = STREAM_SMEM_BUDGET
 # k brick rows per block the planner tries
 MAX_KROWS = 8
 # the tap layout K4 compiles in (csrc/tap_layouts.cuh, LayoutStar9)
 K4_LAYOUTS = ("mpi9pt",)
+# K4's register-streaming body (csrc/pencil_regstream_4d.cu[h]): the 4-D
+# star's taps at the fused depths and row widths (a plane's lanes, the i
+# tile and its margins) it compiles, at most this many output j rows a
+# block (a plane's j rows are these and F radii a side, compiled in), the
+# k rows of a group (level 1's rows at the 4-D step's shape, one brick row
+# of 8 and 2F - 2 more, are two groups) and threads per block, each owning
+# one (group, column) item.  Its planner takes i tiles of a warp's 32 lanes
+# or a whole brick row, narrower ones only where those leave SMs idle.
+# Fuse 3 and 4 stay on the ring body: at the 4-D step's shape their items
+# fit the threads only in tiles of 8 to 16 lanes, where this body ran 5%
+# and 54% slower than the ring body (bench/k4_regimes.py), their warps
+# spanning several j rows
+REGSTREAM4_FUSE = (2,)
+REGSTREAM4_ROW_WIDTHS = (40,)
+REGSTREAM4_ROWS_J = 8
+REGSTREAM4_ROWS_K = 5
+REGSTREAM4_THREADS = 768
 
 
 @dataclass(frozen=True)
@@ -267,18 +288,172 @@ def stream4_footprint(plan: SweepPlan, wch: int, pk: int, pj: int, ti: int,
                                     wch, pk, pj, ti, sp.h, d, skew))
 
 
+@dataclass(frozen=True)
+class RegStream4Plan(Stream4Plan):
+    """K4's launch through its register-streaming body, as
+    :func:`regstream_plan_4d` plans it: the blocks are decoded as the ring
+    body's (:meth:`Stream4Plan.blocks`), with no skewed levels; level 1's
+    k rows of every level plane are ``nq`` groups of
+    ``REGSTREAM4_ROWS_K`` rows, each of ``REGSTREAM4_ROWS_J + 2F`` j rows
+    of ``rw`` lanes (the compiled row width, ``ti + 2h`` and up)."""
+
+    rw: int
+    nq: int
+
+    def items(self) -> int:
+        """The (group, column) items of a block: the columns level 1 needs,
+        ``(pj BJ + 2F - 2) x (ti + 2F - 2)``, in each of ``nq`` groups."""
+        return (self.nq * (self.pj * self.bdims[2] + 2 * self.fuse - 2)
+                * (self.ti + 2 * self.fuse - 2))
+
+
+def regstream4_smem(bdims, fuse: int, wch: int, pk: int, pj: int, rw: int,
+                    nq: int, d: int) -> int:
+    """Dynamic shared memory of one register-streaming K4 block, laid out
+    as ``pencil_regstream_4d.cuh`` lays it out: ``d + 3`` level-0 planes
+    and two of each of levels 1 to F-1, every plane a leading k row of
+    ``ws = (8 + 2F) rw`` floats and a pad, ``nq`` groups of ``ur =
+    REGSTREAM4_ROWS_K`` k rows and a pad (``ur ws + pad`` is ``ws``
+    modulo 32) and a trailing k row, the count rounded up to even; then the
+    brick table (``(wch + 2) x (pk + 2) x (pj + 2)`` 64-bit offsets), three
+    ints per level-0 row rounded up to even, and two buffers of ``pk BK x
+    pj BJ`` 64-bit output row addresses."""
+    _, BK, BJ, _ = bdims
+    ws = (REGSTREAM4_ROWS_J + 2 * fuse) * rw
+    ur = REGSTREAM4_ROWS_K
+    pad = (32 - (ur - 1) * ws % 32) % 32
+    planes = d + 3 + 2 * (fuse - 1)
+    n = (planes * (ws + pad + nq * (ur * ws + pad) + ws) + 1) & ~1
+    rows0 = (pk * BK + 2 * fuse) * (pj * BJ + 2 * fuse)
+    return (4 * n + 8 * (wch + 2) * (pk + 2) * (pj + 2)
+            + 4 * ((3 * rows0 + 1) & ~1) + 16 * pk * BK * pj * BJ)
+
+
+@lru_cache(maxsize=256)
+def _regstream_plan_4d(bdims, ranges, table_k: int, fuse: int, batch: int,
+                       budget: int) -> RegStream4Plan | None:
+    BW, BK, BJ, BI = bdims
+    (W0, W1), (K0, K1), (J0, J1) = ranges
+    F = fuse
+    if F not in REGSTREAM4_FUSE or F > min(BW, BK, BJ):
+        return None
+    nw, nk, npen = W1 - W0, K1 - K0, J1 - J0
+    pw = 4 if BI % 4 == 0 else 1
+    h = -(-F // pw) * pw
+    chunks = sorted(c for c in {-(-nw // n) for n in range(1, nw + 1)}
+                    if (c + 2) * BW + 3 * F < PLANE_SPAN)
+
+    def search(tiles):
+        """The least estimated cost and footprint over the i tiles
+        ``tiles`` (None where none fits), and its blocks."""
+        best = None
+        for ti in tiles:
+            rw = min((w for w in REGSTREAM4_ROW_WIDTHS if w >= ti + 2 * h),
+                     default=None)
+            if rw is None:
+                continue
+            for pj in range(1, min(npen, MAX_PENCILS) + 1):
+                wj = pj * BJ
+                if wj > REGSTREAM4_ROWS_J:
+                    break
+                for pk in range(1, min(nk, MAX_KROWS) + 1):
+                    nq = -(-(pk * BK + 2 * F - 2) // REGSTREAM4_ROWS_K)
+                    # level f computes nq groups of its (wj + 2(F-f)) x
+                    # (ti + 2(F-f)) columns
+                    cols = [nq * (wj + 2 * (F - f)) * (ti + 2 * (F - f))
+                            for f in range(1, F + 1)]
+                    if cols[0] > REGSTREAM4_THREADS:
+                        continue
+                    # an SM's step: one block an SM (its shared memory)
+                    step = RS_STEP_COST + F * RS_LEVEL_COST + sum(cols)
+                    for wch in chunks:
+                        nblocks = (batch * -(-nw // wch) * -(-nk // pk)
+                                   * -(-npen // pj) * (BI // ti))
+                        waves = -(-nblocks // SM_COUNT)
+                        for d in (3, 2, 1):
+                            if regstream4_smem(bdims, F, wch, pk, pj, rw,
+                                               nq, d) > budget:
+                                continue
+                            cost = (waves * (wch * BW + 2 * F) * step, -d,
+                                    -ti, pk, wch)
+                            if best is None or cost < best[0]:
+                                best = (cost, (wch, pk, pj, ti, rw, d),
+                                        nblocks)
+        return best
+
+    # i tiles of a warp's 32 lanes or the whole brick row; narrower ones
+    # only where those leave SMs without a block
+    tiles = [t for t in range(pw, BI + 1, pw) if BI % t == 0]
+    best = search([t for t in tiles if t >= min(32, BI)])
+    if best is not None and best[2] < SM_COUNT:
+        best = min(best, search([t for t in tiles if t < min(32, BI)])
+                   or best)
+    if best is None:
+        return None
+    return _reg4_plan(bdims, ranges, table_k, F, batch, *best[1])
+
+
+def _reg4_plan(bdims, ranges, table_k: int, fuse: int, batch: int,
+               wch: int, pk: int, pj: int, ti: int, rw: int,
+               d: int) -> RegStream4Plan:
+    """The register-streaming launch at a footprint, its level-0 margin,
+    piece, groups and shared memory counted from it (the star's radius 1
+    on every side)."""
+    BK, BI = bdims[1], bdims[3]
+    pw = 4 if BI % 4 == 0 else 1
+    h = -(-fuse // pw) * pw
+    nq = -(-(pk * BK + 2 * fuse - 2) // REGSTREAM4_ROWS_K)
+    one = (1,) * 4
+    return RegStream4Plan(ranges, bdims, fuse, one, one, table_k, batch, wch,
+                          pk, pj, ti, h, pw, d, 0,
+                          regstream4_smem(bdims, fuse, wch, pk, pj, rw, nq,
+                                          d), rw, nq)
+
+
+def regstream4_footprint(plan: SweepPlan, wch: int, pk: int, pj: int,
+                         ti: int, rw: int, d: int) -> RegStream4Plan:
+    """The register-streaming launch of ``plan`` (the 4-D star) at a
+    footprint of its own, whether or not the planner takes the body there;
+    for measuring the planner's choice against its neighbours and the body
+    at shapes it leaves to the ring body.  The C entry point refuses a
+    footprint whose items or shared memory do not fit."""
+    return _reg4_plan(tuple(plan.bdims), tuple(plan.ranges),
+                      plan.table.shape[1], plan.fuse, plan.batch, wch, pk,
+                      pj, ti, rw, d)
+
+
+def regstream_plan_4d(plan: SweepPlan) -> RegStream4Plan | None:
+    """Kernel K4's launch through its register-streaming body, or None
+    where that body does not take the sweep: it takes the 4-D star's taps
+    (mpi9pt: ``csrc/tap_layouts.cuh``'s ``LayoutStar9``) at ``fuse`` in
+    :data:`REGSTREAM4_FUSE`, F radii within a brick, at the footprint (w
+    chunk, k brick rows, pencils of at most :data:`REGSTREAM4_ROWS_J` j
+    rows, an i tile of 32 lanes and up or the whole brick row and its
+    compiled row width, lookahead) of least estimated cost over waves of
+    one block an SM whose shared memory fits :data:`K4_SMEM_BUDGET` and
+    whose items fit the threads."""
+    if (plan.taps is None or plan.fuse not in REGSTREAM4_FUSE
+            or plan.taps.offsets.tolist() != _layouts(K4_LAYOUTS)[0]):
+        return None
+    return _regstream_plan_4d(tuple(plan.bdims), tuple(plan.ranges),
+                              plan.table.shape[1], plan.fuse, plan.batch,
+                              K4_SMEM_BUDGET)
+
+
 def pencil_sweep_4d_kernel(x: torch.Tensor, table: torch.Tensor,
                            plan: SweepPlan) -> torch.Tensor:
-    """Launch kernel K4 on CUDA tensors, as :func:`stream_plan_4d` plans
-    it; returns a fresh output whose unwritten bricks are undefined."""
+    """Launch kernel K4 on CUDA tensors: through its register-streaming
+    body where :func:`regstream_plan_4d` plans a launch, else its ring body
+    as :func:`stream_plan_4d` plans it; returns a fresh output whose
+    unwritten bricks are undefined."""
+    rp = regstream_plan_4d(plan)
+    if rp is not None:
+        return launch_regstream_4d(x, table, plan, rp)
     return launch_4d(x, table, plan, None)
 
 
-def launch_4d(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
-              sp: Stream4Plan | None) -> torch.Tensor:
-    """K4 at ``sp``'s footprint (``None``: the planner's).  The shared
-    memory is counted again from the footprint, so no launch takes less
-    than its layout needs."""
+def _check_k4_args(x: torch.Tensor, table: torch.Tensor,
+                   plan: SweepPlan) -> None:
     if x.device.type != "cuda" or table.device != x.device:
         raise ValueError("kernel K4 takes storage and table on one CUDA "
                          f"device, got {x.device} and {table.device}")
@@ -298,6 +473,49 @@ def launch_4d(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
                          f"{GJ}]")
     if len(plan.taps.coeffs) > 128:
         raise ValueError("kernel K4 takes at most 128 taps")
+
+
+def launch_regstream_4d(x: torch.Tensor, table: torch.Tensor,
+                        plan: SweepPlan, rp: RegStream4Plan) -> torch.Tensor:
+    """K4 through its register-streaming body at ``rp``'s footprint
+    (:func:`regstream_plan_4d`'s, or another of the same plan; the C entry
+    point refuses one whose shared memory is short).
+    ``launch_regstream_4d.launches`` counts its launches, the program's
+    counter ``k4_regstream``; each is a K4 launch too."""
+    _check_k4_args(x, table, plan)
+    if rp.nstream > 2 ** 31 - 1:
+        raise ValueError("kernel K4 takes at most 2^31 - 1 blocks")
+    BW, BK, BJ, BI = plan.bdims
+    GW, GK, GJ = plan.table.shape
+    (W0, W1), (K0, K1), (J0, J1) = plan.ranges
+    offs = np.ascontiguousarray(plan.taps.offsets, np.int32)
+    coeffs = np.ascontiguousarray(plan.taps.coeffs, np.float32)
+    out = torch.empty_like(x)
+    # 16-byte pieces need 16-byte aligned storage (a view may start anywhere)
+    pw = rp.pw if x.data_ptr() % 16 == 0 else 1
+    err = _build.library().bt_pencil_sweep_regstream_4d(
+        x.data_ptr(), out.data_ptr(), table.data_ptr(),
+        GW, GK, GJ, BW, BK, BJ, BI, W0, W1, K0, K1, J0, J1, plan.fuse,
+        plan.batch, plan.batch_stride, rp.wch, rp.pk, rp.pj, rp.ti, rp.rw,
+        rp.nq, rp.h, pw, rp.d, len(coeffs), offs.ctypes.data,
+        coeffs.ctypes.data, rp.smem_bytes, _build.stream_handle(x.device))
+    _build.check(err, "pencil_sweep_regstream_4d")
+    pencil_sweep_4d_kernel.launches += 1
+    launch_regstream_4d.launches += 1
+    return out
+
+
+launch_regstream_4d.launches = 0
+
+
+def launch_4d(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
+              sp: Stream4Plan | None) -> torch.Tensor:
+    """K4's ring body at ``sp``'s footprint (``None``: the planner's
+    :func:`stream_plan_4d`).  The shared memory is counted again from the
+    footprint, so no launch takes less than its layout needs."""
+    _check_k4_args(x, table, plan)
+    BW, BK, BJ, BI = plan.bdims
+    GW, GK, GJ = plan.table.shape
     sp = (stream_plan_4d(plan) if sp is None
           else stream4_footprint(plan, sp.wch, sp.pk, sp.pj, sp.ti, sp.d,
                                  sp.skew))
@@ -417,4 +635,7 @@ def pencil_sweep_4d(stencil, grid: np.ndarray,
               else None),
         ir=ir, params=dict(params or {}), batch=batch,
         batch_stride=int(batch_stride) if batch > 1 else 0)
-    return sweep_fn(plan, nbricks, pencil_sweep_4d_kernel, "K4")
+    # the span names the body the card runs (pencil_sweep_4d_kernel's
+    # choice)
+    body = "regstream" if regstream_plan_4d(plan) is not None else "stream"
+    return sweep_fn(plan, nbricks, pencil_sweep_4d_kernel, "K4", body=body)

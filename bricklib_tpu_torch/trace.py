@@ -9,8 +9,9 @@ Spans mark the layer boundaries of a step:
   strong exchanges);
 - ``bricklib.sweep``: the callable each sweep planner returns (K1, K4, K6,
   K7, K8, K12; K11, exchange and sweep at once, with ``exchange="fused"``),
-  its arguments made once per plan by :func:`sweep_args` (K1's also name
-  its ``body`` and its table's ``layout``, ``pencil`` or ``ibrick``);
+  its arguments made once per plan by :func:`sweep_args` (K1's and K4's
+  also name their ``body``, ``stream`` or ``regstream``, and K1's its
+  table's ``layout``, ``pencil`` or ``ibrick``);
 - ``bricklib.plan``: the weak or the strong driver's set-up, with the
   children ``bricklib.plan.decomp`` (the decomposition and its tables),
   ``bricklib.plan.domain`` (the host draw of the domain, bricked, and the
@@ -31,9 +32,10 @@ Counters are plain ints, always on: each kernel's launches (the
 ``launches`` attribute of its wrapper, read where it is), those of K1's
 register-streaming body (``k1_regstream``) and of K1 on an i-bricked
 table (``k1_ibrick``: ``pencil_sweep_kernel.ibrick_launches``), each a K1
-launch too, the ``Tensor.copy_`` calls between ranks (``rank_copies``) and
-the ghost bytes the exchanges write (``exchange_bytes``, each byte of the
-payload once).
+launch too, those of K4's register-streaming body (``k4_regstream``),
+each a K4 launch too, the ``Tensor.copy_`` calls between ranks
+(``rank_copies``) and the ghost bytes the exchanges write
+(``exchange_bytes``, each byte of the payload once).
 :func:`counters` returns a snapshot.
 """
 
@@ -77,6 +79,8 @@ BODIES = {
                      "launches"),
     "k1_ibrick": ("codegen.pencil_kernel", "pencil_sweep_kernel",
                   "ibrick_launches"),
+    "k4_regstream": ("codegen.pencil_kernel_4d", "launch_regstream_4d",
+                     "launches"),
 }
 
 _on = False

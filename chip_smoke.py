@@ -82,7 +82,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 5. checks from the launch counters, set to 0 just before each path and
    read just after, that each path ran through its kernels (and K1 on
    i-bricked tables, ``k1_ibrick``, only in the cubic strong path, once a
-   K1 launch there);
+   K1 launch there; K4's register-streaming body, ``k4_regstream``, only
+   in the 4-D paths, once a K4 launch there);
 6. times each kernel beside its plain version, the least time the card
    could take for the same work (bytes over 3.35 TB/s or f32 operations
    over 67 TFLOP/s, the larger) and, where one PyTorch call computes the
@@ -380,21 +381,24 @@ def check_sweep(name, fn, x, err, key):
 
 def phase_kernels_4d(err: dict) -> None:
     """K4 against its plain version at the tiny and the full 4-D shape,
-    through the generic body (a stencil other than the star), at both k
+    through the generic body (a stencil other than the star), the ring
+    body's fused star (the star at fuse 2 through ``launch_4d``, and at
+    fuse 3, which the register-streaming body does not take), at both k
     edges of the table with fuse 1 to 3, and batched over three ranks at
     the tiny shape."""
     import torch
 
     from bricklib_tpu_torch.bench.k4_regimes import mixed_radius
-    from bricklib_tpu_torch.codegen.pencil_kernel_4d import (pencil_sweep_4d,
-                                                             stream_plan_4d)
+    from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
+        launch_4d, pencil_sweep_4d, regstream_plan_4d, stream_plan_4d)
     from bricklib_tpu_torch.core import random_storage
     from bricklib_tpu_torch.stencils import bench_params
 
     def label(fn):
-        sp = stream_plan_4d(fn.plan)
-        return (f"w{sp.wch} k{sp.pk} j{sp.pj} i{sp.ti} d{sp.d} "
-                f"skew{sp.skew} {sp.smem_bytes} B")
+        rp = regstream_plan_4d(fn.plan)
+        sp = rp or stream_plan_4d(fn.plan)
+        return (f"{'regstream' if rp else 'stream'} w{sp.wch} k{sp.pk} "
+                f"j{sp.pj} i{sp.ti} d{sp.d} skew{sp.skew} {sp.smem_bytes} B")
 
     for dims, bd in ((DIMS4_TINY, BD4_TINY), (DIMS4, BD4)):
         dec = decomposition_4d(dims, bd)
@@ -409,6 +413,21 @@ def phase_kernels_4d(err: dict) -> None:
                              dec.nbricks, {}, fuse=FUSE4, **ghost)
         check_sweep(f"{dims} generic taps fuse=2 ghost-inclusive "
                     f"{label(fn)}", fn, x, err, "K4")
+        # the ring body's fused star: fuse 2 by its own launch, fuse 3
+        fn = make_sweep_4d(dec, dec.grid, ghost, FUSE4)
+        table = torch.from_numpy(fn.plan.table).cuda()
+
+        def ring(x, plan=fn.plan, table=table):
+            return launch_4d(x, table, plan, None)
+
+        ring.plan = fn.plan
+        sp = stream_plan_4d(fn.plan)
+        check_sweep(f"{dims} fuse=2 ghost-inclusive ring body w{sp.wch} "
+                    f"k{sp.pk} j{sp.pj} i{sp.ti} d{sp.d} skew{sp.skew}",
+                    ring, x, err, "K4")
+        fn = make_sweep_4d(dec, dec.grid, ghost, 3)
+        check_sweep(f"{dims} fuse=3 ghost-inclusive {label(fn)}", fn, x,
+                    err, "K4")
         if dims == DIMS4_TINY:
             # the intermediate levels' k clamp at each table edge alone
             for fuse in (1, 2, 3):
@@ -1057,32 +1076,37 @@ def drive(name: str, run, want_of):
     """Set every launch count to 0, drive one path, read the counts, and
     fail unless each kernel the path runs (``want_of(result)``: kernel ->
     expected launches, each above 0) launched exactly as expected and the
-    others not at all, and K1 on an i-bricked table (``k1_ibrick``, 0
-    unless the path gives it) as often as expected."""
+    others not at all, K1 on an i-bricked table (``k1_ibrick``) and K4
+    through its register-streaming body (``k4_regstream``) as often as
+    expected (each 0 unless the path gives it)."""
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
+    from bricklib_tpu_torch.codegen.pencil_kernel_4d import \
+        launch_regstream_4d
 
     wrappers = counters()
     for w in wrappers.values():
         w.launches = 0
     pencil_sweep_kernel.ibrick_launches = 0
+    launch_regstream_4d.launches = 0
     t0 = time.perf_counter()
     res = run()
     launches = {k: w.launches for k, w in wrappers.items()}
-    ibrick = pencil_sweep_kernel.ibrick_launches
+    bodies = {"k1_ibrick": pencil_sweep_kernel.ibrick_launches,
+              "k4_regstream": launch_regstream_4d.launches}
     path = want_of(res)
     want = {k: path.get(k, 0) for k in wrappers}
-    want_ib = path.get("k1_ibrick", 0)
+    want_bodies = {k: path.get(k, 0) for k in bodies}
     print(f"[4 {name}] validated in {time.perf_counter() - t0:.1f} s (host "
           f"clock, build to timing); calls {res['calls']}; launches "
-          f"{launches}, k1_ibrick {ibrick}; expected {want}, k1_ibrick "
-          f"{want_ib}")
+          f"{launches}, {bodies}; expected {want}, {want_bodies}")
     for k in wrappers:
         if launches[k] != want[k] or path.get(k) == 0:
             fail(f"{name}: {k} launched {launches[k]} times, expected "
                  f"{want[k]}")
-    if ibrick != want_ib:
-        fail(f"{name}: K1 launched {ibrick} times on an i-bricked table, "
-             f"expected {want_ib}")
+    for k, n in bodies.items():
+        if n != want_bodies[k]:
+            fail(f"{name}: {k} counted {n} launches, expected "
+                 f"{want_bodies[k]}")
     return res, launches
 
 
@@ -1114,6 +1138,8 @@ def phase_paths(card: str) -> dict:
             validate=True, device="cuda"),
          lambda r: {"K4": (ST4 // FUSE4) * (r["calls"]["step"]
                                             + r["calls"]["step_noex"]),
+                    "k4_regstream": (ST4 // FUSE4) * (
+                        r["calls"]["step"] + r["calls"]["step_noex"]),
                     "K2": n4 * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
         ("strong 512^3", lambda: strong.run(
@@ -1178,6 +1204,7 @@ def phase_paths(card: str) -> dict:
                     "K3": r["calls"]["copy"]}),
         ("Problem 4-D mpi9pt", lambda: problem_nd(DIMS4_P, "mpi9pt", 2, 2),
          lambda r: {"K4": r["sweeps"] * r["calls"]["step"],
+                    "k4_regstream": r["sweeps"] * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
         ("Problem 512^3 mpi125pt mxu", lambda: problem_125("mxu", 1),
          lambda r: {"K8": r["sweeps"] * r["calls"]["step"],

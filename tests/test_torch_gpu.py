@@ -22,7 +22,10 @@ K1's register-streaming body (the star at fuse 2 to 4) must equal its
 ring body and ``fuse`` single-level launches bit for bit.  On i-bricked
 tables (cubic strong subdomains) K1 is compared with its plain version at
 abs-or-rel 1e-5, and its two bodies with each other bit for bit; the
-cubic strong step is validated against the global dense twin.
+cubic strong step is validated against the global dense twin.  K4's
+register-streaming body (the 4-D star at fuse 2) must equal its ring body
+bit for bit, and its plain version at abs-or-rel 1e-5; the star at fuse 3
+and 4 keeps the ring body.
 """
 
 import dataclasses
@@ -59,7 +62,9 @@ from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
     launch_2d, pencil_sweep_2d, pencil_sweep_2d_kernel, pencil_sweep_2d_plain,
     row_footprint)
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
-    launch_4d, pencil_sweep_4d, pencil_sweep_4d_kernel, stream4_footprint,
+    K4_SMEM_BUDGET, REGSTREAM4_ROW_WIDTHS, REGSTREAM4_THREADS, launch_4d,
+    launch_regstream_4d, pencil_sweep_4d, pencil_sweep_4d_kernel,
+    regstream4_footprint, regstream_plan_4d, stream4_footprint,
     stream_plan_4d)
 from bricklib_tpu_torch.comm import BrickDecomp, skinlist_by_name
 from bricklib_tpu_torch.comm.exchange import (copy_intervals,
@@ -289,6 +294,193 @@ def test_4d_problem_on_card_matches_cpu(cuda, dims):
                    device="cpu").init(array=g).step(2).result()
     assert np.isfinite(got).all()
     assert compare_arrays(got, want, 1e-5)
+
+
+def _rs4_check(cuda, fn, x, rp=None):
+    """K4 through its register-streaming body (``rp``: another footprint
+    than the planner's) counts one K4 launch and one ``k4_regstream``,
+    and equals its ring body (``launch_4d`` at the ring planner's
+    footprint) bit for bit and its plain version at abs-or-rel 1e-5 on
+    every brick it writes."""
+    plan = fn.plan
+    table = torch.from_numpy(plan.table).to(cuda)
+    if rp is None:
+        assert regstream_plan_4d(plan) is not None
+    before = trace.counters()
+    got = fn(x) if rp is None else launch_regstream_4d(x, table, plan, rp)
+    after = trace.counters()
+    assert after["k4_regstream"] - before["k4_regstream"] == 1
+    assert after["K4"] - before["K4"] == 1
+    ring = launch_4d(x, table, plan, None)
+    want = pencil_sweep_plain(x, table, plan)
+    torch.cuda.synchronize()
+    w = torch.from_numpy(plan.written_bricks()).to(cuda)
+    assert torch.equal(got[w], ring[w])
+    assert compare_arrays(got[w].cpu().numpy(), want[w].cpu().numpy(), 1e-5)
+
+
+def _ring4_check(cuda, fn, x):
+    """The 4-D star at a depth the register-streaming body does not
+    compile: one K4 launch through the ring body (no ``k4_regstream``),
+    ``launch_4d``'s output bit for bit and its plain version's at
+    abs-or-rel 1e-5 on every brick it writes."""
+    plan = fn.plan
+    table = torch.from_numpy(plan.table).to(cuda)
+    assert regstream_plan_4d(plan) is None
+    before = trace.counters()
+    got = fn(x)
+    after = trace.counters()
+    assert after["k4_regstream"] == before["k4_regstream"]
+    assert after["K4"] - before["K4"] == 1
+    ring = launch_4d(x, table, plan, None)
+    want = pencil_sweep_plain(x, table, plan)
+    torch.cuda.synchronize()
+    w = torch.from_numpy(plan.written_bricks()).to(cuda)
+    assert torch.equal(got[w], ring[w])
+    assert compare_arrays(got[w].cpu().numpy(), want[w].cpu().numpy(), 1e-5)
+
+
+def _rs4_sweep(region, fuse, dims=(8, 8, 8, 16), bd=(4, 4, 4, 16),
+               batch=1):
+    """The 4-D star at ``fuse`` over ``region`` of a table with a ghost
+    brick a side: ``ghost`` (every brick: both k edges), ``owned``,
+    ``periodic``, ``low-edge`` / ``high-edge`` (one k brick row at that
+    edge, ghost-inclusive in w and j); ``batch`` ranks stacked."""
+    dec = BrickDecomp(dims=dims, ghost_depth=bd[:3] + (0,),
+                      bdims=bd).initialize(skinlist_by_name("good", 4))
+    G = dec.grid.shape[:3]
+    grid = dec.periodic_grid((0, 1, 2, 3)) if region == "periodic" \
+        else dec.grid
+    whole = dict(w_range=(0, G[0]), k_range=(0, G[1]), j_range=(0, G[2]))
+    kw = {"ghost": whole, "owned": {}, "periodic": {},
+          "low-edge": dict(whole, k_range=(0, 1)),
+          "high-edge": dict(whole, k_range=(G[1] - 1, G[1]))}[region]
+    if batch > 1:
+        kw = dict(kw, batch=batch, batch_stride=dec.nbricks)
+    fn = pencil_sweep_4d("mpi9pt", grid, bd, batch * dec.nbricks,
+                         bench_params(), fuse=fuse, **kw)
+    return dec, fn
+
+
+@pytest.mark.parametrize("region", ["ghost", "owned", "periodic",
+                                    "low-edge", "high-edge"])
+def test_regstream_4d_kernel_is_the_ring_body_bit_for_bit(cuda, region):
+    """K4's register-streaming body (fuse 2) against its ring body and its
+    plain version at the tiny 4-D shape: ghost-inclusive (both k edges),
+    owned, periodic and one k edge alone."""
+    dec, fn = _rs4_sweep(region, 2)
+    _rs4_check(cuda, fn, random_storage(dec, seed=52, device=cuda))
+
+
+@pytest.mark.parametrize("region", ["ghost", "owned"])
+def test_regstream_4d_kernel_batch_3(cuda, region):
+    """The register-streaming body over three ranks stacked."""
+    dec, fn = _rs4_sweep(region, 2, batch=3)
+    x = torch.from_numpy(random_array((3 * dec.nbricks,) + dec.bdims,
+                                      np.float32, 53)).to(cuda)
+    _rs4_check(cuda, fn, x)
+
+
+@pytest.mark.parametrize("fuse", [3, 4])
+@pytest.mark.parametrize("region,batch", [
+    ("ghost", 1), ("owned", 1), ("periodic", 1), ("low-edge", 1),
+    ("high-edge", 1), ("ghost", 3)])
+def test_4d_star_at_fuse_3_and_4_keeps_the_ring_body(cuda, region, batch,
+                                                     fuse):
+    """The 4-D star at fuse 3 and 4 runs the ring body's fused star
+    (``LayoutStar9``), held against its plain version: ghost-inclusive,
+    owned, periodic, each k edge alone, three ranks stacked."""
+    dec, fn = _rs4_sweep(region, fuse, batch=batch)
+    x = torch.from_numpy(random_array((batch * dec.nbricks,) + dec.bdims,
+                                      np.float32, 50 + fuse)).to(cuda)
+    _ring4_check(cuda, fn, x)
+
+
+@pytest.mark.parametrize("fuse,region", [
+    (2, "ghost"), (2, "owned"), (2, "periodic"), (3, "ghost"),
+    (4, "owned")])
+def test_regstream_4d_kernel_at_the_step_shape(cuda, fuse, region):
+    """The weak 4-D step's shape (16x64x128x512, bricks (4, 8, 8,
+    512)): the step's two sweeps (fuse 2) take the register-streaming
+    body (i tiles of 32 lanes, row width 40); at fuse 3 and 4 the sweep
+    keeps the ring body, held against its plain version."""
+    dec, fn = _rs4_sweep(region, fuse, (16, 64, 128, 512), (4, 8, 8, 512))
+    x = random_storage(dec, seed=54, device=cuda)
+    if fuse == 2:
+        rp = regstream_plan_4d(fn.plan)
+        assert (rp.pk, rp.pj, rp.ti, rp.rw) == (1, 1, 32, 40)
+        _rs4_check(cuda, fn, x)
+    else:
+        _ring4_check(cuda, fn, x)
+
+
+def test_regstream_4d_kernel_ragged_footprints(cuda):
+    """The register-streaming body at footprints other than the planner's:
+    w chunks and k groups that do not divide the ranges, two pencils of
+    bricks 4 wide, i tiles of 4 to 32 lanes in the compiled row width,
+    lookahead 1 to 3, and storage that is not 16-byte aligned (pieces of
+    one float)."""
+    dec, fn = _rs4_sweep("ghost", 2, (12, 12, 8, 32), (4, 4, 4, 32))
+    plan = fn.plan
+    x = random_storage(dec, seed=55, device=cuda)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    odd = flat[1:].view(x.shape)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16 != 0
+    n, rw = 0, REGSTREAM4_ROW_WIDTHS[0]
+    for wch, pk, pj, ti, d, st in ((2, 2, 2, 4, 2, x), (3, 3, 1, 8, 1, x),
+                                   (4, 1, 2, 16, 3, odd),
+                                   (1, 2, 1, 32, 1, odd),
+                                   (2, 1, 1, 8, 1, odd),
+                                   (3, 1, 2, 8, 2, x)):
+        v = regstream4_footprint(plan, wch, pk, pj, ti, rw, d)
+        if (v.items() > REGSTREAM4_THREADS or ti + 2 * v.h > rw
+                or v.smem_bytes > K4_SMEM_BUDGET):
+            continue
+        _rs4_check(cuda, fn, st, v)
+        n += 1
+    assert n >= 3
+
+
+def test_regstream_4d_counter_moves_once_per_new_body_launch(cuda):
+    """``k4_regstream`` moves by one for each launch of the new body and
+    not for K4's other launches (fuse 1 and 4, generic taps), while ``K4``
+    counts them all."""
+    dec, _ = _rs4_sweep("owned", 2)
+    x = random_storage(dec, seed=56, device=cuda)
+    generic = BrickDecomp(dims=(4, 8, 8, 16), ghost_depth=(2, 4, 4, 0),
+                          bdims=(2, 4, 4, 16)).initialize(
+        skinlist_by_name("good", 4))
+    xg = random_storage(generic, seed=57, device=cuda)
+    for fuse, n in ((2, 1), (4, 0), (1, 0)):
+        _, fn = _rs4_sweep("owned", fuse)
+        before = trace.counters()
+        fn(x)
+        fn(x)
+        after = trace.counters()
+        assert after["k4_regstream"] - before["k4_regstream"] == 2 * n
+        assert after["K4"] - before["K4"] == 2
+    fn = pencil_sweep_4d(mixed_radius(), generic.grid, generic.bdims,
+                         generic.nbricks, {}, fuse=2)
+    before = trace.counters()
+    fn(xg)
+    after = trace.counters()
+    assert after["k4_regstream"] == before["k4_regstream"]
+    assert after["K4"] - before["K4"] == 1
+    torch.cuda.synchronize()
+
+
+def test_regstream_4d_kernel_refuses_too_little_shared_memory(cuda):
+    """The register-streaming body's C entry point refuses a launch whose
+    shared memory is smaller than its block's layout."""
+    dec, fn = _rs4_sweep("periodic", 2)
+    x = random_storage(dec, seed=58, device=cuda)
+    rp = regstream_plan_4d(fn.plan)
+    short = dataclasses.replace(rp, smem_bytes=rp.smem_bytes - 8)
+    table = torch.from_numpy(fn.plan.table).to(cuda)
+    with pytest.raises(RuntimeError, match="pencil_sweep_regstream_4d"):
+        launch_regstream_4d(x, table, fn.plan, short)
+    _rs4_check(cuda, fn, x)
 
 
 def _strong_plan():

@@ -198,7 +198,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         "brick_copy.cu", "dense_stencil.cu", "pencil_sweep.cu",
         "pencil_sweep_2d.cu", "pencil_sweep_4d.cu", "pencil_sweep_mxu.cu",
         "remote_copy.cu", "fused_exchange.cu", "pencil_sweep_nd.cu",
-        "pencil_regstream.cu"}
+        "pencil_regstream.cu", "pencil_regstream_4d.cu"}
     for name, argtypes in _build.SIGNATURES.items():
         assert name.startswith("bt_") and argtypes[-1] is ctypes.c_void_p
 

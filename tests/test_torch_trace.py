@@ -137,6 +137,47 @@ def test_each_counter_reads_its_wrappers_attribute(name):
         == {name: 3}
 
 
+def test_k4_register_body_launches_count_as_k4(monkeypatch):
+    """Each launch of K4's register-streaming body moves ``k4_regstream``
+    and ``K4`` by one; K4's other launches (the star at ``fuse`` 1 and 4,
+    generic taps) move ``K4`` alone.  The library is a stand-in here, so the wrapper's
+    dispatch and counting run on the CPU."""
+    from types import SimpleNamespace
+
+    from bricklib_tpu_torch import _build
+    from bricklib_tpu_torch.bench.k4_regimes import mixed_radius
+    from bricklib_tpu_torch.codegen import pencil_kernel_4d as k4
+    from bricklib_tpu_torch.stencils import bench_params
+
+    lib = SimpleNamespace(bt_pencil_sweep_4d=lambda *a: 0,
+                          bt_pencil_sweep_regstream_4d=lambda *a: 0)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(k4, "_check_k4_args", lambda *a: None)
+    dims, bd = (8, 8, 8, 16), (4, 4, 4, 16)
+    dec = BrickDecomp(dims=dims, ghost_depth=bd[:3] + (0,),
+                      bdims=bd).initialize(skinlist_by_name("good", 4))
+    x = torch.zeros((dec.nbricks,) + bd)
+    table = torch.from_numpy(np.ascontiguousarray(dec.grid[..., 0],
+                                                  np.int32))
+    gen = BrickDecomp(dims=(4, 8, 8, 16), ghost_depth=(2, 4, 4, 0),
+                      bdims=(2, 4, 4, 16)).initialize(
+        skinlist_by_name("good", 4))
+    for stencil, d, fuse, n in (("mpi9pt", dec, 2, 1), ("mpi9pt", dec, 4, 0),
+                                ("mpi9pt", dec, 1, 0),
+                                (mixed_radius(), gen, 2, 0)):
+        prm = bench_params() if stencil == "mpi9pt" else {}
+        fn = k4.pencil_sweep_4d(stencil, d.grid, d.bdims, d.nbricks, prm,
+                                fuse=fuse)
+        xs = x if d is dec else torch.zeros((gen.nbricks,) + gen.bdims)
+        tb = table if d is dec else torch.from_numpy(fn.plan.table)
+        before = trace.counters()
+        k4.pencil_sweep_4d_kernel(xs, tb, fn.plan)
+        after = trace.counters()
+        assert after["K4"] - before["K4"] == 1
+        assert after["k4_regstream"] - before["k4_regstream"] == n
+
+
 @pytest.mark.parametrize("nd", [3, 4])
 @pytest.mark.parametrize("kind", ["shift", "put"])
 def test_exchange_bytes_are_the_ghost_shell(nd, kind):
