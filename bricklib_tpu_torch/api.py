@@ -54,10 +54,10 @@ from .codegen.ir import (PASS_FUSE_MAX, StencilIR, fold_linear,
                          generic_pass_estimate, vpu_pass_estimate)
 from .codegen.fused_exchange import pencil_sweep_fusedx
 from .codegen.mxu_kernel import pencil_sweep_mxu
-from .codegen.pencil_kernel import FEATURES_ITEM, pencil_sweep
+from .codegen.pencil_kernel import FEATURES_ITEM, k1_launch, pencil_sweep
 from .codegen.pencil_kernel_2d import pencil_sweep_2d
-from .codegen.pencil_kernel_4d import (pencil_sweep_4d, regstream_plan_4d,
-                                       stream_plan_4d)
+from .codegen.pencil_kernel_4d import k4_launch, pencil_sweep_4d
+from .codegen.schedule import StepSweeps, outer_ranges
 from .comm import BrickDecomp, skinlist_by_name
 from .comm.exchange import on_card, put_plan, shift_exchange
 from .comm.mesh import Mesh, make_domain_mesh, rank_views, to_state
@@ -276,24 +276,18 @@ class Problem:
                 f"ghost depth {gmin}")
         kgrid = dec.periodic_grid(table_axes)
         fused_x = exchange == "fused" and distributed
-
-        def _rng(skip):
-            # outer-axis ranges: 2-D y; 3-D (k, j); 4-D (w, k, j); table
-            # axes compute owned rows only
-            return {f"{'wkj'[a + 4 - nd] if nd > 2 else 'y'}_range":
-                    (1, kgrid.shape[a] - 1) if a in table_axes
-                    else (skip, kgrid.shape[a] - skip)
-                    for a in range(nd - 1)}
-
-        ghost_kern = batched = None
+        per_card = False
         if backend == "mxu":
             # fuse=1: the factorized form is the amortization
             fuse = 1
-            kern = pencil_sweep_mxu(self.sdef, kgrid, bd, nb, self.params,
-                                    **_rng(1))
-            if self.st_iter > 1 and distributed:
-                ghost_kern = pencil_sweep_mxu(self.sdef, kgrid, bd, nb,
-                                              self.params, **_rng(0))
+
+            def make(p, ghost):
+                return pencil_sweep_mxu(
+                    self.sdef, kgrid, bd, nb, self.params,
+                    **outer_ranges(kgrid, table_axes, ghost))
+
+            sweeps = StepSweeps(make, self.st_iter, distributed)
+            kern = sweeps.pair(1)[0]
             plan = kern.plan
             info = {"kernel": "K8 pencil_sweep_mxu",
                     "w_profiles": kern.n_wprofiles,
@@ -319,12 +313,14 @@ class Problem:
                             fuse = cand
                             break
             sd_or_sys = sdefs if nfld > 1 else self.sdef
-            kern = pencil_sweep_2d(sd_or_sys, kgrid, bd, nb, self.params,
-                                   fuse=fuse, **_rng(1))
-            if self.st_iter > fuse and distributed:
-                ghost_kern = pencil_sweep_2d(sd_or_sys, kgrid, bd, nb,
-                                             self.params, fuse=fuse,
-                                             **_rng(0))
+
+            def make(p, ghost):
+                return pencil_sweep_2d(
+                    sd_or_sys, kgrid, bd, nb, self.params, fuse=fuse,
+                    **outer_ranges(kgrid, table_axes, ghost))
+
+            sweeps = StepSweeps(make, self.st_iter // fuse, distributed)
+            kern = sweeps.pair(1)[0]
             plan = kern.plan
             info = {"kernel": "K6 pencil_sweep_2d",
                     "taps": (None if plan.taps is None
@@ -353,30 +349,23 @@ class Problem:
                         fuse = cand
                         break
             sweep = pencil_sweep if nd == 3 else pencil_sweep_4d
-            by_batch: dict = {}
 
-            def batched(p):
-                """The owned-only and ghost-inclusive sweeps over the
-                ``p`` ranks of a card, one launch each."""
-                if p not in by_batch:
-                    kw = dict(fuse=fuse, batch=p, batch_stride=nb)
-                    by_batch[p] = (
-                        sweep(self.sdef, kgrid, bd, p * nb, self.params,
-                              **_rng(1), **kw),
-                        sweep(self.sdef, kgrid, bd, p * nb, self.params,
-                              **_rng(0), **kw)
-                        if budget > fuse and distributed else None)
-                return by_batch[p]
+            def make(p, ghost):
+                return sweep(self.sdef, kgrid, bd, p * nb, self.params,
+                             **outer_ranges(kgrid, table_axes, ghost),
+                             fuse=fuse, batch=p, batch_stride=nb)
 
-            kern = batched(1)[0]
+            sweeps = StepSweeps(make, budget // fuse, distributed)
+            per_card = True
+            kern = sweeps.pair(1)[0]
             plan = kern.plan
             info = {"kernel": ("K1 pencil_sweep" if nd == 3
                                else "K4 pencil_sweep_4d"),
                     "taps": (None if plan.taps is None
                              else [len(plan.taps.coeffs)])}
             if plan.taps is not None:
-                sp = ((plan.regstream() or plan.stream()) if nd == 3
-                      else regstream_plan_4d(plan) or stream_plan_4d(plan))
+                sp = (k1_launch if nd == 3 else k4_launch)(plan)
+                info["body"] = sp.body
                 info["tile_i"], info["smem_bytes"] = sp.ti, sp.smem_bytes
         self.fuse = fuse
         self._make_mesh(device, devices, flat=fused_x)
@@ -385,14 +374,11 @@ class Problem:
             fusedx = pencil_sweep_fusedx(
                 self.sdef, kgrid, bd, nb, put_plan(dec, msh, table_axes),
                 msh, self.params, mesh=self.mesh,
-                **_rng(0 if self.st_iter > 1 else 1))
-            nsweeps = (self.st_iter - 1) // fuse
+                **outer_ranges(kgrid, table_axes, self.st_iter > 1))
             info["fused_kernel"] = "K11 pencil_sweep_fusedx"
-        else:
-            if distributed:
-                exchange_fn = shift_exchange(dec, self.mesh,
-                                             table_axes=table_axes)
-            nsweeps = self.st_iter // fuse
+        elif distributed:
+            exchange_fn = shift_exchange(dec, self.mesh,
+                                         table_axes=table_axes)
         cards = self.mesh.cards
 
         def by_rank(k, states):
@@ -412,22 +398,6 @@ class Problem:
                                else torch.stack([r[o] for r in res]))
             return outs
 
-        def sweep_once(last, states, auxv):
-            if batched is not None:
-                out = []
-                for t in states[0]:
-                    fn, ghost_fn = batched(t.shape[0])
-                    k = fn if (last or ghost_fn is None) else ghost_fn
-                    with on_card(t.device):
-                        out.append(k(t.view((-1,) + t.shape[2:])).view(
-                            t.shape))
-                return [out]
-            k = kern if (last or ghost_kern is None) else ghost_kern
-            vs = dict(zip(self.aux_names, auxv))
-            vs.update(zip(self.fields, states))
-            names = k.fields if hasattr(k, "fields") else self.fields[:1]
-            return by_rank(k, [vs[n_] for n_ in names])
-
         def one(states, auxv):
             states = list(states)
             if fusedx is not None:
@@ -435,8 +405,14 @@ class Problem:
             elif exchange_fn is not None:
                 for st in states:
                     exchange_fn(st)
-            for it in range(nsweeps):
-                states = sweep_once(it == nsweeps - 1, states, auxv)
+            if per_card:
+                return [sweeps(states[0])]
+            # K6 and K8 rank by rank
+            vs = dict(zip(self.aux_names, auxv))
+            for k in sweeps.order(1):
+                vs.update(zip(self.fields, states))
+                names = k.fields if hasattr(k, "fields") else self.fields[:1]
+                states = by_rank(k, [vs[n_] for n_ in names])
             return states
 
         self._one = one

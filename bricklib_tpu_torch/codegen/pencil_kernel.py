@@ -109,9 +109,15 @@ def stream_loads(offsets, layouts: tuple = STREAM_LAYOUTS) -> float:
     rows run along the offsets' second axis: j in K1, k in K4), per row;
     otherwise one per tap."""
     offs = np.asarray(offsets).tolist()
-    if offs not in _layouts(tuple(layouts)):
+    known = _layouts(tuple(layouts))
+    if offs not in known:
         return float(len(offs))
-    vals = {(o[0], o[1] + u, *o[2:]) for o in offs
+    return _layout_loads(tuple(layouts), known.index(offs))
+
+
+@lru_cache(maxsize=None)
+def _layout_loads(layouts: tuple, n: int) -> float:
+    vals = {(o[0], o[1] + u, *o[2:]) for o in _layouts(layouts)[n]
             for u in range(STREAM_ROWS)}
     return len(vals) / STREAM_ROWS
 
@@ -127,8 +133,10 @@ class StreamPlan:
     of device memory for the clamp's source planes there.  Bit f of
     ``skew`` (1 <= f < F): levels f and f+1 are skewed by a plane, with no
     barrier between them and a plane more in level f's ring.
-    ``smem_bytes`` is the launch's dynamic shared memory."""
+    ``smem_bytes`` is the launch's dynamic shared memory; ``body`` names
+    the kernel body that runs it."""
 
+    body = "stream"
     ranges: tuple
     bdims: tuple
     batch: int
@@ -367,6 +375,7 @@ class RegStreamPlan(StreamPlan):
     width, ``ti + 2h`` and up), and each block's stash per edge holds every
     thread's items at the clamp's source planes."""
 
+    body = "regstream"
     rw: int
     nq: int
 
@@ -615,15 +624,22 @@ def pencil_sweep_plain(x, table: torch.Tensor,
     return out
 
 
+def k1_launch(plan: SweepPlan) -> StreamPlan:
+    """K1's launch of ``plan``: through its register-streaming body where
+    :meth:`SweepPlan.regstream` plans one, else through its ring body as
+    :meth:`SweepPlan.stream` plans it."""
+    return plan.regstream() or plan.stream()
+
+
 def pencil_sweep_kernel(x: torch.Tensor, table: torch.Tensor,
                         plan: SweepPlan) -> torch.Tensor:
-    """Launch kernel K1 on CUDA tensors: through its register-streaming
-    body where :meth:`SweepPlan.regstream` plans a launch, else its ring
-    body as :meth:`SweepPlan.stream` plans it; returns a fresh output
-    whose unwritten bricks are undefined."""
-    rp = plan.regstream()
-    if rp is not None:
-        return launch_regstream(x, table, plan, rp)
+    """Launch kernel K1 on CUDA tensors at :func:`k1_launch`'s launch;
+    returns a fresh output whose unwritten bricks are undefined."""
+    # checked first: the planners read the taps a nonlinear stencil lacks
+    _check_k1_args(x, table, plan)
+    lp = k1_launch(plan)
+    if lp.body == "regstream":
+        return launch_regstream(x, table, plan, lp)
     return _launch_stream(x, table, plan, None)
 
 
@@ -913,8 +929,8 @@ def pencil_sweep(stencil, grid: np.ndarray,
         taps=(params_from_reference(params, ir) if ir.linear is not None
               else None),
         ir=ir, params=dict(params or {}), batch=batch, batch_stride=stride)
-    # the span names the body the card runs (pencil_sweep_kernel's choice)
-    # and the table's layout
+    # the span names the body the card runs (k1_launch's choice, without
+    # planning the ring body) and the table's layout
     body = "regstream" if plan.regstream() is not None else "stream"
     return sweep_fn(plan, nbricks, pencil_sweep_kernel, body=body,
                     layout="ibrick" if ib else "pencil")

@@ -43,9 +43,10 @@ from .pencil_kernel import pencil_sweep_plain as pencil_sweep_4d_plain
 from .taps import as_ir, params_from_reference
 
 __all__ = ["K4_SMEM_BUDGET", "K4_THREADS", "RegStream4Plan", "Stream4Plan",
-           "launch_regstream_4d", "pencil_sweep_4d", "pencil_sweep_4d_kernel",
-           "pencil_sweep_4d_plain", "regstream4_footprint", "regstream4_smem",
-           "regstream_plan_4d", "stream4_smem", "stream_plan_4d"]
+           "k4_launch", "launch_regstream_4d", "pencil_sweep_4d",
+           "pencil_sweep_4d_kernel", "pencil_sweep_4d_plain",
+           "regstream4_footprint", "regstream4_smem", "regstream_plan_4d",
+           "stream4_smem", "stream_plan_4d"]
 
 # K4's ring body's w-streaming blocks (csrc/pencil_stream_4d.cuh) on the
 # H100: 512 threads, one block per SM (a thread may hold 128 registers),
@@ -83,8 +84,10 @@ class Stream4Plan:
     ``h`` lanes per side in pieces of ``pw`` floats, ``d`` planes ahead.
     Bit f of ``skew`` (1 <= f < F): levels f and f+1 are skewed by a
     plane, with no barrier between them and a plane more in level f's
-    ring.  ``smem_bytes`` is the launch's dynamic shared memory."""
+    ring.  ``smem_bytes`` is the launch's dynamic shared memory; ``body``
+    names the kernel body that runs it."""
 
+    body = "stream"
     ranges: tuple
     bdims: tuple
     fuse: int
@@ -297,6 +300,7 @@ class RegStream4Plan(Stream4Plan):
     ``REGSTREAM4_ROWS_K`` rows, each of ``REGSTREAM4_ROWS_J + 2F`` j rows
     of ``rw`` lanes (the compiled row width, ``ti + 2h`` and up)."""
 
+    body = "regstream"
     rw: int
     nq: int
 
@@ -440,15 +444,22 @@ def regstream_plan_4d(plan: SweepPlan) -> RegStream4Plan | None:
                               K4_SMEM_BUDGET)
 
 
+def k4_launch(plan: SweepPlan) -> Stream4Plan:
+    """K4's launch of ``plan``: through its register-streaming body where
+    :func:`regstream_plan_4d` plans one, else through its ring body as
+    :func:`stream_plan_4d` plans it."""
+    return regstream_plan_4d(plan) or stream_plan_4d(plan)
+
+
 def pencil_sweep_4d_kernel(x: torch.Tensor, table: torch.Tensor,
                            plan: SweepPlan) -> torch.Tensor:
-    """Launch kernel K4 on CUDA tensors: through its register-streaming
-    body where :func:`regstream_plan_4d` plans a launch, else its ring body
-    as :func:`stream_plan_4d` plans it; returns a fresh output whose
-    unwritten bricks are undefined."""
-    rp = regstream_plan_4d(plan)
-    if rp is not None:
-        return launch_regstream_4d(x, table, plan, rp)
+    """Launch kernel K4 on CUDA tensors at :func:`k4_launch`'s launch;
+    returns a fresh output whose unwritten bricks are undefined."""
+    # checked first: the planners read the taps a nonlinear stencil lacks
+    _check_k4_args(x, table, plan)
+    lp = k4_launch(plan)
+    if lp.body == "regstream":
+        return launch_regstream_4d(x, table, plan, lp)
     return launch_4d(x, table, plan, None)
 
 
@@ -635,7 +646,7 @@ def pencil_sweep_4d(stencil, grid: np.ndarray,
               else None),
         ir=ir, params=dict(params or {}), batch=batch,
         batch_stride=int(batch_stride) if batch > 1 else 0)
-    # the span names the body the card runs (pencil_sweep_4d_kernel's
-    # choice)
+    # the span names the body the card runs (k4_launch's choice, without
+    # planning the ring body)
     body = "regstream" if regstream_plan_4d(plan) is not None else "stream"
     return sweep_fn(plan, nbricks, pencil_sweep_4d_kernel, "K4", body=body)

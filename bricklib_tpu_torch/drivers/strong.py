@@ -55,6 +55,7 @@ from ..bench.roofline import chain, copy_storage
 from ..bench.timing import mpi_statistics, time_mpi
 from ..codegen.jnp_backend import CardTables, dense_apply, oracle_iterate
 from ..codegen.pencil_kernel import pencil_sweep
+from ..codegen.schedule import StepSweeps, outer_ranges
 from ..comm import skin3d_good
 from ..comm.exchange import on_card
 from ..comm.mesh import rank_views, run_mesh, to_state
@@ -155,50 +156,28 @@ def _plan_step(dom, sdom, bdim, stencil, st_iter, fuse, device, mesh_shape,
         # i-bricked sweeps over the decomposition's own table (ref:
         # strong.py:94-110): the i ghost ring skipped, or swept too
         grid = sdec.grid
-        GKs, GJs, GIs = grid.shape
-        owned_kw = dict(i_ghost=1)
-        ghost_kw = dict(i_ghost=1, i_range=(0, GIs))
+        i_kw = {False: dict(i_ghost=1),
+                True: dict(i_ghost=1, i_range=(0, grid.shape[2]))}
     else:
         grid = sdec.periodic_grid((2,))
-        GKs, GJs = grid.shape[:2]
-        owned_kw, ghost_kw = {}, {}
-    fkw = dict(fuse=fuse) if fuse > 1 else {}
-    by_batch: dict = {}
+        i_kw = {False: {}, True: {}}
 
-    def sweeps_for(p):
-        """The owned-only and ghost-inclusive sweeps over ``p`` ranks."""
-        if p not in by_batch:
-            common = dict(batch=p * nloc, batch_stride=nb, **fkw)
-            with trace.span(trace.PLAN_KERNELS):
-                by_batch[p] = (
-                    pencil_sweep(sd, grid, bdim, p * nloc * nb,
-                                 bench_params(), **owned_kw, **common),
-                    pencil_sweep(sd, grid, bdim, p * nloc * nb,
-                                 bench_params(), k_range=(0, GKs),
-                                 j_range=(0, GJs), **ghost_kw, **common)
-                    if st_iter > fuse else None)
-        return by_batch[p]
+    def make(p, ghost):
+        return pencil_sweep(sd, grid, bdim, p * nloc * nb, bench_params(),
+                            **outer_ranges(grid, (), ghost),
+                            **i_kw[ghost], fuse=fuse, batch=p * nloc,
+                            batch_stride=nb)
 
-    nsweeps = st_iter // fuse
+    sweeps = StepSweeps(make, st_iter // fuse, True)
 
     def step_state(state):
         calls["step"] += 1
         with trace.span(trace.STEP, step=calls["step"]):
             exchange_fn(state)
-            out = []
-            for t in state:
-                sweep_skip, sweep_ghost = sweeps_for(t.shape[0])
-                flat = t.view((-1,) + bdim)
-                with on_card(t.device):
-                    for it in range(nsweeps):
-                        last = it == nsweeps - 1
-                        flat = (sweep_skip if (last or sweep_ghost is None)
-                                else sweep_ghost)(flat)
-                out.append(flat.view(t.shape))
-            return out
+            return sweeps(state)
 
     step = _finish(step_state, mesh, exchange_fn,
-                   sweeps_for(len(mesh.ranks_on(0)))[::-1])
+                   sweeps.pair(len(mesh.ranks_on(0)))[::-1])
     return step, _storage(state, mesh), plan, g
 
 

@@ -60,6 +60,7 @@ from ..codegen.jnp_backend import (CardTables, brick_apply, dense_apply,
                                    oracle_iterate)
 from ..codegen.pencil_kernel import pencil_sweep
 from ..codegen.pencil_kernel_4d import pencil_sweep_4d
+from ..codegen.schedule import StepSweeps, outer_ranges
 from ..comm import BrickDecomp, skinlist_by_name
 from ..comm.exchange import (on_card, put_exchange, put_plan,
                              shift_exchange, shift_remote_exchange)
@@ -195,59 +196,31 @@ def _plan_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
                        if mesh_shape[a] == 1
                        and (table_periodic or a == nd - 1))
     kgrid = dec.periodic_grid(table_axes)
-
-    def _ranges(skip):
-        return {f"{'wkj'[a + 4 - nd]}_range": (1, kgrid.shape[a] - 1)
-                if a in table_axes else (skip, kgrid.shape[a] - skip)
-                for a in range(nd - 1)}
-
     sweep = pencil_sweep if nd == 3 else pencil_sweep_4d
-    fkw = dict(fuse=fuse) if fuse > 1 else dict(lookahead=2)
-    ghost_sweep = st_iter > fuse and len(table_axes) < nd
-    by_batch: dict = {}
 
-    def sweeps_for(p):
-        """The owned-only and ghost-inclusive sweeps over ``p`` ranks."""
-        if p not in by_batch:
-            kw = dict(fkw, batch=p, batch_stride=dec.nbricks)
-            with trace.span(trace.PLAN_KERNELS):
-                by_batch[p] = (
-                    sweep(sd, kgrid, bdim, p * dec.nbricks, params,
-                          **_ranges(1), **kw),
-                    sweep(sd, kgrid, bdim, p * dec.nbricks, params,
-                          **_ranges(0), **kw) if ghost_sweep else None)
-        return by_batch[p]
+    def make(p, ghost):
+        return sweep(sd, kgrid, bdim, p * dec.nbricks, params,
+                     **outer_ranges(kgrid, table_axes, ghost),
+                     fuse=fuse, batch=p, batch_stride=dec.nbricks)
 
     s.moves_data = len(table_axes) < nd
-    nsweeps = st_iter // fuse
     fused = None
     if exchange == "fused":
         _check_fused(nd, fuse)
         # the exchange fused into the first sweep (kernel K11), the
         # remaining st_iter - 1 sweeps plain (ref: weak.py:193-212)
-        s0 = 0 if st_iter > 1 else 1
         fused = pencil_sweep_fusedx(
             sd, kgrid, bdim, dec.nbricks, put_plan(dec, mesh_shape,
                                                    table_axes),
             mesh_shape, params, mesh=mesh,
-            **{f"{a}_range": (1, kgrid.shape[i] - 1) if i in table_axes
-               else (s0, kgrid.shape[i] - s0) for i, a in enumerate("kj")})
+            **outer_ranges(kgrid, table_axes, st_iter > 1))
         ex = None
+        sweeps = StepSweeps(make, st_iter - 1, s.moves_data)
+        noex = sweeps.longer(1)
     else:
         ex = EXCHANGES[exchange](dec, mesh, table_axes=table_axes) \
             if s.moves_data else None
-
-    def sweeps(state, first=0):
-        out = []
-        for t in state:
-            fn, ghost_fn = sweeps_for(t.shape[0])
-            d = t.view((-1,) + bdim)
-            with on_card(t.device):
-                for it in range(first, nsweeps):
-                    last = it == nsweeps - 1
-                    d = fn(d) if (last or ghost_fn is None) else ghost_fn(d)
-            out.append(d.view(t.shape))
-        return out
+        sweeps = noex = StepSweeps(make, st_iter // fuse, s.moves_data)
 
     def step(state):
         """Exchange (in place on ``state``) then the sweeps; with the
@@ -255,7 +228,7 @@ def _plan_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
         s.calls["step"] += 1
         with trace.span(trace.STEP, step=s.calls["step"]):
             if fused is not None:
-                return sweeps(fused(state)[0], first=1)
+                return sweeps(fused(state)[0])
             if ex is not None:
                 ex(state)
             return sweeps(state)
@@ -264,7 +237,7 @@ def _plan_step(dims, bdim, stencil, st_iter, fuse, table_periodic, skin,
         """The step without its exchange: the exchange cost is measured
         differentially (step - step_noex)."""
         s.calls["step_noex"] += 1
-        return sweeps(state)
+        return noex(state)
 
     s.step, s.step_noex, s.exchange = step, step_noex, fused or ex
     return s

@@ -390,15 +390,14 @@ def phase_kernels_4d(err: dict) -> None:
 
     from bricklib_tpu_torch.bench.k4_regimes import mixed_radius
     from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
-        launch_4d, pencil_sweep_4d, regstream_plan_4d, stream_plan_4d)
+        k4_launch, launch_4d, pencil_sweep_4d, stream_plan_4d)
     from bricklib_tpu_torch.core import random_storage
     from bricklib_tpu_torch.stencils import bench_params
 
     def label(fn):
-        rp = regstream_plan_4d(fn.plan)
-        sp = rp or stream_plan_4d(fn.plan)
-        return (f"{'regstream' if rp else 'stream'} w{sp.wch} k{sp.pk} "
-                f"j{sp.pj} i{sp.ti} d{sp.d} skew{sp.skew} {sp.smem_bytes} B")
+        sp = k4_launch(fn.plan)
+        return (f"{sp.body} w{sp.wch} k{sp.pk} j{sp.pj} i{sp.ti} d{sp.d} "
+                f"skew{sp.skew} {sp.smem_bytes} B")
 
     for dims, bd in ((DIMS4_TINY, BD4_TINY), (DIMS4, BD4)):
         dec = decomposition_4d(dims, bd)

@@ -42,6 +42,7 @@ from bricklib_tpu_torch.codegen.pencil_kernel import (REGSTREAM_FUSE,
                                                       RegStreamPlan,
                                                       StreamPlan,
                                                       _stream_footprint,
+                                                      k1_launch,
                                                       pencil_sweep,
                                                       regstream_smem,
                                                       regstream_stash_floats,
@@ -375,10 +376,13 @@ def test_regstream_edge_chunks_and_stash(rs_sweep):
 
 @pytest.mark.parametrize("name", sorted(RS_CASES))
 def test_regstream_dispatch_takes_the_star_at_fuse_2_to_4(name):
-    """Star taps at fuse 2 to 4 take the register-streaming body."""
+    """Star taps at fuse 2 to 4 take the register-streaming body, which
+    :func:`k1_launch` chooses."""
     fn = RS_CASES[name]()
     assert fn.plan.fuse in REGSTREAM_FUSE == (2, 3, 4)
     assert isinstance(fn.plan.regstream(), RegStreamPlan)
+    lp = k1_launch(fn.plan)
+    assert lp == fn.plan.regstream() and lp.body == "regstream"
 
 
 @pytest.mark.parametrize("name", ["periodic-s7pt-f1", "periodic-mpi125pt-f1",
@@ -387,10 +391,59 @@ def test_regstream_dispatch_takes_the_star_at_fuse_2_to_4(name):
                                   "k-extent-one-row-low-edge"])
 def test_regstream_dispatch_leaves_the_other_sweeps_on_the_ring_body(name):
     """``fuse=1``, the cube and the generic taps (mpi13pt) keep the ring
-    body and ``SweepPlan.stream``."""
+    body and ``SweepPlan.stream``, which :func:`k1_launch` chooses."""
     fn = CASES[name]()
     assert fn.plan.regstream() is None
     assert type(fn.plan.stream()) is StreamPlan
+    lp = k1_launch(fn.plan)
+    assert lp == fn.plan.stream() and lp.body == "stream"
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 3, 4, 5])
+def test_regstream_dispatch_launches_the_choosers_body(fuse, monkeypatch):
+    """``pencil_sweep_kernel`` launches :func:`k1_launch`'s body at its
+    shared memory: the register-streaming body at fuse 2 to 4, the ring
+    body at fuse 1 and 5.  The library is a stand-in here, so the
+    wrapper's dispatch runs on the CPU."""
+    from types import SimpleNamespace
+
+    from bricklib_tpu_torch import _build
+
+    calls = []
+    lib = SimpleNamespace(
+        bt_pencil_sweep=lambda *a: calls.append(("stream", a[-3])) or 0,
+        bt_pencil_sweep_regstream=lambda *a: calls.append(
+            ("regstream", a[-2])) or 0)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(pencil_kernel, "_check_k1_args", lambda *a: None)
+    monkeypatch.setattr(pencil_kernel, "_stash", lambda *a: None)
+    dec, grid = _dec((40, 40, 32), (8, 8, 32))
+    fn = pencil_sweep("s7pt", grid, dec.bdims, dec.nbricks, bench_params(),
+                      fuse=fuse)
+    pencil_kernel.pencil_sweep_kernel(
+        torch.zeros((dec.nbricks,) + dec.bdims),
+        torch.from_numpy(fn.plan.table), fn.plan)
+    lp = k1_launch(fn.plan)
+    assert calls == [(lp.body, lp.smem_bytes)]
+    assert lp.body == ("regstream" if fuse in REGSTREAM_FUSE else "stream")
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 4])
+def test_regstream_dispatch_describe_names_the_choosers_launch(fuse):
+    """``Problem.describe()`` reports the body, i tile and shared memory
+    of :func:`k1_launch`'s launch of the problem's owned sweep."""
+    from bricklib_tpu_torch.api import Problem
+
+    p = Problem(dims=(32, 32, 64), stencil="s7pt", st_iter=4,
+                schedule={"fuse": fuse}, device="cpu")
+    info = p.describe()["kernels"][0]
+    fn = pencil_sweep("s7pt", p.dec.periodic_grid((0, 1, 2)), p.bdims,
+                      p.dec.nbricks, p.params, fuse=fuse)
+    lp = k1_launch(fn.plan)
+    assert (info["body"], info["tile_i"], info["smem_bytes"]) == (
+        lp.body, lp.ti, lp.smem_bytes)
+    assert info["body"] == ("stream" if fuse == 1 else "regstream")
 
 
 @pytest.mark.parametrize("fuse", [1, 2, 3, 4])

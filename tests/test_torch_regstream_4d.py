@@ -26,7 +26,8 @@ from bricklib_tpu_torch.codegen import pencil_kernel_4d
 from bricklib_tpu_torch.codegen.pencil_kernel_4d import (
     K4_SMEM_BUDGET, REGSTREAM4_FUSE, REGSTREAM4_ROW_WIDTHS, REGSTREAM4_ROWS_J,
     REGSTREAM4_ROWS_K, REGSTREAM4_THREADS, RegStream4Plan, Stream4Plan,
-    regstream4_footprint, regstream4_smem, regstream_plan_4d, stream_plan_4d)
+    k4_launch, regstream4_footprint, regstream4_smem, regstream_plan_4d,
+    stream_plan_4d)
 from bricklib_tpu_torch.stencils import bench_params
 
 from test_torch_pencil_stream_4d import BD, BD_TINY, STEP, TINY, _dec, _sweep
@@ -151,6 +152,7 @@ def test_regstream_4d_takes_the_step_sweeps(kind, wch):
     fn = _sweep(STEP, BD, 2, kind)
     rp = regstream_plan_4d(fn.plan)
     assert isinstance(rp, RegStream4Plan)
+    assert k4_launch(fn.plan) == rp and rp.body == "regstream"
     assert (rp.wch, rp.pk, rp.pj, rp.ti, rp.rw, rp.nq, rp.d) == (
         wch, 1, 1, 32, 40, 2, 3)
     assert rp.items() == 680
@@ -214,6 +216,26 @@ def test_regstream_4d_leaves_the_other_sweeps_on_the_ring_body(name):
         name]()
     assert regstream_plan_4d(fn.plan) is None
     assert type(stream_plan_4d(fn.plan)) is Stream4Plan
+    lp = k4_launch(fn.plan)
+    assert lp == stream_plan_4d(fn.plan) and lp.body == "stream"
+
+
+@pytest.mark.parametrize("fuse", [1, 2])
+def test_regstream_4d_describe_names_the_choosers_launch(fuse):
+    """``Problem.describe()`` reports the body, i tile and shared memory
+    of :func:`k4_launch`'s launch of the 4-D problem's owned sweep."""
+    from bricklib_tpu_torch.api import Problem
+
+    p = Problem(dims=(8, 16, 16, 64), stencil="mpi9pt", st_iter=2,
+                schedule={"fuse": fuse}, device="cpu")
+    info = p.describe()["kernels"][0]
+    fn = pencil_kernel_4d.pencil_sweep_4d(
+        "mpi9pt", p.dec.periodic_grid((0, 1, 2, 3)), p.bdims, p.dec.nbricks,
+        p.params, fuse=fuse)
+    lp = k4_launch(fn.plan)
+    assert (info["body"], info["tile_i"], info["smem_bytes"]) == (
+        lp.body, lp.ti, lp.smem_bytes)
+    assert info["body"] == ("regstream" if fuse == 2 else "stream")
 
 
 def test_regstream_4d_needs_a_compiled_row_width(monkeypatch):

@@ -140,7 +140,8 @@ def test_each_counter_reads_its_wrappers_attribute(name):
 def test_k4_register_body_launches_count_as_k4(monkeypatch):
     """Each launch of K4's register-streaming body moves ``k4_regstream``
     and ``K4`` by one; K4's other launches (the star at ``fuse`` 1 and 4,
-    generic taps) move ``K4`` alone.  The library is a stand-in here, so the wrapper's
+    generic taps) move ``K4`` alone.  Each launches ``k4_launch``'s body at
+    its shared memory.  The library is a stand-in here, so the wrapper's
     dispatch and counting run on the CPU."""
     from types import SimpleNamespace
 
@@ -149,8 +150,11 @@ def test_k4_register_body_launches_count_as_k4(monkeypatch):
     from bricklib_tpu_torch.codegen import pencil_kernel_4d as k4
     from bricklib_tpu_torch.stencils import bench_params
 
-    lib = SimpleNamespace(bt_pencil_sweep_4d=lambda *a: 0,
-                          bt_pencil_sweep_regstream_4d=lambda *a: 0)
+    calls = []
+    lib = SimpleNamespace(
+        bt_pencil_sweep_4d=lambda *a: calls.append(("stream", a[-3])) or 0,
+        bt_pencil_sweep_regstream_4d=lambda *a: calls.append(
+            ("regstream", a[-2])) or 0)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
     monkeypatch.setattr(k4, "_check_k4_args", lambda *a: None)
@@ -176,6 +180,9 @@ def test_k4_register_body_launches_count_as_k4(monkeypatch):
         after = trace.counters()
         assert after["K4"] - before["K4"] == 1
         assert after["k4_regstream"] - before["k4_regstream"] == n
+        lp = k4.k4_launch(fn.plan)
+        assert calls.pop() == (lp.body, lp.smem_bytes)
+        assert (lp.body == "regstream") == bool(n)
 
 
 @pytest.mark.parametrize("nd", [3, 4])

@@ -273,3 +273,64 @@ def test_unported_ranks_and_meshes_raise(kw, err, match):
     args.update(kw)
     with pytest.raises(err, match=match):
         weak.run(**args)
+
+
+@pytest.mark.parametrize("n,exchanged,fused", [
+    (n, ex, False) for n in (1, 2, 4) for ex in (True, False)] + [
+    (n, True, True) for n in (0, 1, 3)])
+def test_step_sweeps_runs_ghost_inclusive_sweeps_but_the_last(n, exchanged,
+                                                              fused):
+    """``StepSweeps`` runs ``n`` sweeps on each card of a state, every one
+    but the last ghost-inclusive where more than one runs and some axis
+    exchanges, and otherwise builds no ghost-inclusive sweep.  It makes
+    each card's sweeps once per rank count, on first use, in one
+    ``bricklib.plan.kernels`` span.  With the fused exchange (K11 is the
+    first sweep) the step runs ``n = st_iter - 1`` sweeps and the step
+    without its exchange ``n + 1`` of them, sharing the plans."""
+    from types import SimpleNamespace
+
+    from bricklib_tpu_torch import trace
+    from bricklib_tpu_torch.codegen.schedule import StepSweeps
+
+    made, ran = [], []
+
+    def make(p, ghost):
+        made.append((p, ghost))
+
+        def fn(d):
+            assert tuple(d.shape) == (p * 4, 2, 3)
+            ran.append((p, ghost))
+            return d + 1
+
+        fn.plan = SimpleNamespace(bdims=(2, 3))
+        return fn
+
+    def want(p, m):
+        if m > 1 and exchanged:
+            return [(p, True)] * (m - 1) + [(p, False)]
+        return [(p, False)] * m
+
+    step = StepSweeps(make, n, exchanged)
+    runs = [(step, n)] + ([(step.longer(1), n + 1)] if fused else [])
+    state = [torch.zeros((2, 4, 2, 3)), torch.zeros((3, 4, 2, 3))]
+    for sweeps, m in runs:
+        for first in (True, False):
+            made_before = len(made)
+            ran.clear()
+            with trace.tracing():
+                trace.records()
+                out = sweeps(state)
+                spans = [s.name for s in trace.records()]
+            assert [t.shape for t in out] == [t.shape for t in state]
+            assert all(bool((t == m).all()) for t in out)
+            assert ran == want(2, m) + want(3, m)
+            new = made[made_before:]
+            assert spans == [trace.PLAN_KERNELS] * len({p for p, _ in new})
+            assert first or new == []
+    top = max(m for _, m in runs)
+    ghost = exchanged and top > 1
+    assert sorted(made) == [(p, g) for p in (2, 3) for g in (False, True)
+                            if top and (ghost or not g)]
+    assert len(made) == len(set(made))
+    assert all(made.index((p, False)) < made.index((p, True))
+               for p, g in made if g)
