@@ -5,7 +5,9 @@
 
 Each regime is one pencil sweep at a path's shape (512^3 s7pt, bricks (8,
 8, 512), at fuse 4, 2 and 1; the strong stack of 16 subdomains of
-128x128x512 at fuse 4 and 2; bench.py's 125-point leg), timed with CUDA
+128x128x512 at fuse 4 and 2; the cubic strong stack of 64 subdomains of
+128^3 in 8^3 bricks, i-bricked, at fuse 4, ghost-inclusive on every axis
+and owned-only; bench.py's 125-point leg), timed with CUDA
 events over ``--iters`` launches after one warm-up; each sweep's output on
 the bricks it writes is also digested (sha256), so that two trees that
 agree bit for bit say so.  The star at fuse 2 to 4 runs K1's
@@ -91,6 +93,20 @@ def regimes(match: str = ""):
                 (f"strong x{nsub} owned-only s7pt fuse={f}",
                  pencil_sweep("s7pt", kg, BD, nsub * nb, p, **kw),
                  (nsub * nb,) + BD)]
+    cp = StrongDecomp(dom=(N,) * 3, sdom=(N // 4,) * 3,
+                      mesh_shape=(1, 1, 1), bdims=(8, 8, 8),
+                      ghost_depth=(8, 8, 8)).initialize(
+        skinlist_by_name("good", 3))
+    cg, nb, nsub = cp.sdec.grid, cp.sdec.nbricks, cp.nsub_local
+    GK, GJ, GI = cg.shape
+    kw = dict(i_ghost=1, batch=nsub, batch_stride=nb, fuse=4)
+    out += [(f"strong x{nsub} cubic ghost-inclusive s7pt fuse=4",
+             pencil_sweep("s7pt", cg, (8, 8, 8), nsub * nb, p,
+                          k_range=(0, GK), j_range=(0, GJ), i_range=(0, GI),
+                          **kw), (nsub * nb, 8, 8, 8)),
+            (f"strong x{nsub} cubic owned-only s7pt fuse=4",
+             pencil_sweep("s7pt", cg, (8, 8, 8), nsub * nb, p, **kw),
+             (nsub * nb, 8, 8, 8))]
     out += [(f"periodic mpi125pt fuse={f}",
              pencil_sweep("mpi125pt", per, BD, dec.nbricks, p, fuse=f),
              shape) for f in (1, 2)]
@@ -153,8 +169,9 @@ def footprints(iters: int, match: str = "") -> dict:
     import torch
 
     from bricklib_tpu_torch.codegen.pencil_kernel import (
-        REGSTREAM_ITEMS, REGSTREAM_THREADS, STREAM_SMEM_BUDGET,
-        _launch_stream, _stream_footprint, launch_regstream, regstream_smem)
+        REGSTREAM_ITEMS, REGSTREAM_ROW_WIDTHS, REGSTREAM_THREADS,
+        STREAM_SMEM_BUDGET, _launch_stream, _stream_footprint, brick_cols,
+        launch_regstream, regstream_smem, tile_widths)
 
     out, x = {}, None
     for name, fn, shape in regimes(match):
@@ -168,17 +185,28 @@ def footprints(iters: int, match: str = "") -> dict:
         res = []
         if rp is not None:
             BJ, BI = plan.bdims[1:]
+            # i tiles: on the pencil layout 32 and 64 lanes, on an
+            # i-bricked table the planner's widths of 24 to 72 lanes
+            tiles = ((32, 40), (64, 72))
+            if plan.ibrick:
+                tiles = tuple(
+                    (t, min(w for w in REGSTREAM_ROW_WIDTHS
+                            if w >= t + 2 * rp.h))
+                    for t in tile_widths(plan.bdims, plan.ranges, rp.pw)
+                    if 24 <= t <= 72)
             cands = {(rp.kch, rp.pj, rp.ti, rp.rw, rp.d)}
             for kch in {max(1, rp.kch // 2), rp.kch, 2 * rp.kch, 8, 16, 64}:
                 for pj in range(2, 7):
-                    for ti, rw in ((32, 40), (64, 72)):
+                    for ti, rw in tiles:
                         for d in (1, 2):
                             cands.add((kch, pj, ti, rw, d))
             for kch, pj, ti, rw, d in sorted(cands):
                 nq = -(-(pj * BJ + 2 * plan.fuse) // 4)
                 smem = regstream_smem(plan.bdims, plan.fuse, kch, pj, rw,
-                                      nq, d)
-                if (BI % ti or nq * rw > REGSTREAM_THREADS * REGSTREAM_ITEMS
+                                      nq, d, brick_cols(plan.bdims, ti, rp.h,
+                                                        plan.ibrick))
+                if ((BI % ti and not plan.ibrick)
+                        or nq * rw > REGSTREAM_THREADS * REGSTREAM_ITEMS
                         or smem > STREAM_SMEM_BUDGET):
                     continue
                 v = dataclasses.replace(rp, kch=kch, pj=pj, ti=ti, rw=rw,

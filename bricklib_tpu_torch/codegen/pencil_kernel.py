@@ -691,7 +691,11 @@ def launch_regstream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
     (:meth:`SweepPlan.regstream`'s, or another of the same plan; the C
     entry point refuses one whose shared memory or stash is short).
     ``launch_regstream.launches`` counts its launches, the program's
-    counter ``k1_regstream``; each is a K1 launch too."""
+    counter ``k1_regstream``; each is a K1 launch too.  Those on an
+    i-bricked table whose every output item stores its quad of rows from
+    one row offset (:func:`quad_stores`) are also counted in
+    ``pencil_sweep_kernel.quad_launches``, the program's counter
+    ``k1_ibrick_quads``."""
     _check_k1_args(x, table, plan)
     if rp.nstream > 2 ** 31 - 1:
         raise ValueError("kernel K1 takes at most 2^31 - 1 blocks")
@@ -714,7 +718,20 @@ def launch_regstream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
     _build.check(err, "pencil_sweep_regstream")
     _counted(plan)
     launch_regstream.launches += 1
+    if quad_stores(plan):
+        pencil_sweep_kernel.quad_launches += 1
     return out
+
+
+def quad_stores(plan: SweepPlan) -> bool:
+    """The register-streaming body stores every output item of ``plan``
+    (a thread's quad of :data:`STREAM_ROWS` rows of one column) from one
+    row offset: on an i-bricked table, where the quads' rows, from ``F``
+    rows above the block's first, never straddle a pencil (``F`` and
+    ``BJ`` multiples of :data:`STREAM_ROWS`); other items read an offset a
+    row (``pencil_regstream.cuh``)."""
+    return (plan.ibrick and plan.fuse % STREAM_ROWS == 0
+            and plan.bdims[1] % STREAM_ROWS == 0)
 
 
 launch_regstream.launches = 0
@@ -773,6 +790,7 @@ def _launch_stream(x: torch.Tensor, table: torch.Tensor, plan: SweepPlan,
 
 pencil_sweep_kernel.launches = 0
 pencil_sweep_kernel.ibrick_launches = 0
+pencil_sweep_kernel.quad_launches = 0
 
 # K1's stash per (device, stream), kept between launches: launches on one
 # stream run in order, and a fresh stash per call between the outputs'

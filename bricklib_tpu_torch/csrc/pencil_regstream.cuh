@@ -61,6 +61,12 @@
 // rows' offsets, one per row and brick column, are made once a brick row
 // (the in-brick k offset added at the store), in a buffer of the brick
 // row's parity, where per step they would cost a step's fixed part more.
+// An item whose four rows are output rows of one pencil (every output
+// item where F and BJ are multiples of 4, as at fuse 4 on 8^3 bricks)
+// reads one of them, its first row's, and adds BI floats a row: a brick's
+// k-plane holds its rows BI floats apart.  A 64-bit offset read and add a
+// row was the store's cost; the 32-byte pieces a warp's store breaks into
+// (32 / BI bricks) were not.
 //
 // Each output's sum is acc = 0; acc += c[t] * x[t] in the star's tap
 // order, as in the ring body: a value read from a register has the bits
@@ -320,7 +326,8 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
     // block's rows, and whether it holds an output (level F's lanes and
     // rows); its first row as an output row, its column as an output lane
     // (on an i-bricked table: the output lane's brick column, from obf,
-    // and its lane there; a tile may end past the output lanes)
+    // and its lane there, and bit 16 set where the quad's rows are all
+    // output rows of one pencil; a tile may end past the output lanes)
     int ofs[M], orow[M], col[M];
     bool act[M], outp[M];
 #pragma unroll
@@ -336,8 +343,10 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
         if constexpr (IB) {
             const int gl = i0 + col[m], ob = outp[m] ? gl / BI : obf;
             outp[m] = outp[m] && gl < ibg.IL1;
+            const bool one = orow[m] >= 0 && orow[m] + UR <= WJ
+                             && orow[m] / BJ == (orow[m] + UR - 1) / BJ;
             orow[m] = orow[m] * NOB + ob - obf;
-            col[m] = gl - ob * BI;
+            col[m] = (gl - ob * BI) | (one ? 1 << 16 : 0);
         }
     }
 
@@ -530,10 +539,17 @@ __device__ __forceinline__ void regstream_block(const float* __restrict__ x,
 #pragma unroll
                     for (int u = 0; u < UR; ++u) {
                         if constexpr (IB) {
-                            // orow: (first row) * NOB + brick column
+                            // orow: (first row) * NOB + brick column; a
+                            // quad in one pencil from its first row's offset
+                            const int lane = col[m] & 0xffff;
+                            if (col[m] >> 16) {
+                                out[ro[orow[m]] + (kofs + lane + u * BI)] =
+                                    nx[m][u];
+                                continue;
+                            }
                             const int r = orow[m] + u * NOB;
                             if (r >= 0 && r < WJ * NOB)
-                                out[ro[r] + (kofs + col[m])] = nx[m][u];
+                                out[ro[r] + (kofs + lane)] = nx[m][u];
                         } else {
                             if (orow[m] + u >= 0 && orow[m] + u < WJ)
                                 out[ro[orow[m] + u] + col[m]] = nx[m][u];

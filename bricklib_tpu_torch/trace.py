@@ -32,10 +32,13 @@ Counters are plain ints, always on: each kernel's launches (the
 ``launches`` attribute of its wrapper, read where it is), those of K1's
 register-streaming body (``k1_regstream``) and of K1 on an i-bricked
 table (``k1_ibrick``: ``pencil_sweep_kernel.ibrick_launches``), each a K1
-launch too, those of K4's register-streaming body (``k4_regstream``),
-each a K4 launch too, the ``Tensor.copy_`` calls between ranks
-(``rank_copies``) and the ghost bytes the exchanges write
-(``exchange_bytes``, each byte of the payload once).
+launch too, those of K1's register-streaming body on an i-bricked table
+that store every output quad of rows from one row offset
+(``k1_ibrick_quads``: ``pencil_sweep_kernel.quad_launches``), each also a
+``k1_ibrick`` and a ``k1_regstream`` launch, those of K4's
+register-streaming body (``k4_regstream``), each a K4 launch too, the
+``Tensor.copy_`` calls between ranks (``rank_copies``) and the ghost bytes
+the exchanges write (``exchange_bytes``, each byte of the payload once).
 :func:`counters` returns a snapshot.
 """
 
@@ -79,6 +82,8 @@ BODIES = {
                      "launches"),
     "k1_ibrick": ("codegen.pencil_kernel", "pencil_sweep_kernel",
                   "ibrick_launches"),
+    "k1_ibrick_quads": ("codegen.pencil_kernel", "pencil_sweep_kernel",
+                        "quad_launches"),
     "k4_regstream": ("codegen.pencil_kernel_4d", "launch_regstream_4d",
                      "launches"),
 }

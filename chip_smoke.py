@@ -82,8 +82,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 5. checks from the launch counters, set to 0 just before each path and
    read just after, that each path ran through its kernels (and K1 on
    i-bricked tables, ``k1_ibrick``, only in the cubic strong path, once a
-   K1 launch there; K4's register-streaming body, ``k4_regstream``, only
-   in the 4-D paths, once a K4 launch there);
+   K1 launch there, each storing every output quad of rows from one row
+   offset, ``k1_ibrick_quads``; K4's register-streaming body,
+   ``k4_regstream``, only in the 4-D paths, once a K4 launch there);
 6. times each kernel beside its plain version, the least time the card
    could take for the same work (bytes over 3.35 TB/s or f32 operations
    over 67 TFLOP/s, the larger) and, where one PyTorch call computes the
@@ -1075,8 +1076,9 @@ def drive(name: str, run, want_of):
     """Set every launch count to 0, drive one path, read the counts, and
     fail unless each kernel the path runs (``want_of(result)``: kernel ->
     expected launches, each above 0) launched exactly as expected and the
-    others not at all, K1 on an i-bricked table (``k1_ibrick``) and K4
-    through its register-streaming body (``k4_regstream``) as often as
+    others not at all, K1 on an i-bricked table (``k1_ibrick``), its
+    output quads each stored from one row offset (``k1_ibrick_quads``) and
+    K4 through its register-streaming body (``k4_regstream``) as often as
     expected (each 0 unless the path gives it)."""
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
     from bricklib_tpu_torch.codegen.pencil_kernel_4d import \
@@ -1086,11 +1088,13 @@ def drive(name: str, run, want_of):
     for w in wrappers.values():
         w.launches = 0
     pencil_sweep_kernel.ibrick_launches = 0
+    pencil_sweep_kernel.quad_launches = 0
     launch_regstream_4d.launches = 0
     t0 = time.perf_counter()
     res = run()
     launches = {k: w.launches for k, w in wrappers.items()}
     bodies = {"k1_ibrick": pencil_sweep_kernel.ibrick_launches,
+              "k1_ibrick_quads": pencil_sweep_kernel.quad_launches,
               "k4_regstream": launch_regstream_4d.launches}
     path = want_of(res)
     want = {k: path.get(k, 0) for k in wrappers}
@@ -1154,6 +1158,8 @@ def phase_paths(card: str) -> dict:
             backend="pencil", device="cuda"),
          lambda r: {"K1": (ST_ITER // FUSE) * r["calls"]["step"],
                     "k1_ibrick": (ST_ITER // FUSE) * r["calls"]["step"],
+                    "k1_ibrick_quads": (ST_ITER // FUSE)
+                    * r["calls"]["step"],
                     "K5": r["exchange_steps"] * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
     ] + [

@@ -56,6 +56,7 @@ from bricklib_tpu_torch.codegen.pencil_kernel import (SweepPlan,
                                                       pencil_sweep,
                                                       pencil_sweep_kernel,
                                                       pencil_sweep_plain,
+                                                      quad_stores,
                                                       regstream_smem,
                                                       stream_smem)
 from bricklib_tpu_torch.codegen.pencil_kernel_2d import (
@@ -1470,9 +1471,11 @@ def _ib_sweep(stencil, fuse, region, bd=(8, 8, 8), batch=3):
 def _ib_check(cuda, fn, x, rp=None, sp=None):
     """K1 on an i-bricked table: the planner's launch (or ``rp`` through
     the register-streaming body, ``sp`` through the ring body) counts one
-    K1 and one ``k1_ibrick`` launch and matches the plain version on the
-    bricks it writes at abs-or-rel 1e-5 (the card contracts multiply and
-    add into FMAs, the plain version rounds each); where the
+    K1 and one ``k1_ibrick`` launch (and, through the register body, one
+    ``k1_regstream``, and one ``k1_ibrick_quads`` where its every output
+    quad stores from one row offset) and matches the plain version
+    on the bricks it writes at abs-or-rel 1e-5 (the card contracts multiply
+    and add into FMAs, the plain version rounds each); where the
     register-streaming body takes the sweep it equals the ring body bit for
     bit (both keep each output's tap order)."""
     plan = fn.plan
@@ -1485,10 +1488,13 @@ def _ib_check(cuda, fn, x, rp=None, sp=None):
     else:
         got = fn(x)
     after = trace.counters()
+    reg = int(rp is not None
+              or (sp is None and plan.regstream() is not None))
     assert after["K1"] - before["K1"] == 1
     assert after["k1_ibrick"] - before["k1_ibrick"] == 1
-    assert after["k1_regstream"] - before["k1_regstream"] == int(
-        rp is not None or (sp is None and plan.regstream() is not None))
+    assert after["k1_regstream"] - before["k1_regstream"] == reg
+    assert after["k1_ibrick_quads"] - before["k1_ibrick_quads"] == \
+        reg * quad_stores(plan)
     want = pencil_sweep_plain(x, table, plan)
     torch.cuda.synchronize()
     w = torch.from_numpy(plan.written_bricks()).to(cuda)
@@ -1512,25 +1518,36 @@ def test_ibrick_sweep_kernel_matches_plain(cuda, stencil, fuse, region):
     _ib_check(cuda, fn, x)
 
 
+@pytest.mark.parametrize("bi", [4, 8])
 @pytest.mark.parametrize("fuse", [2, 3, 4])
 @pytest.mark.parametrize("region", ["owned", "ghost"])
-def test_ibrick_regstream_ragged_footprints(cuda, region, fuse):
+def test_ibrick_regstream_ragged_footprints(cuda, region, fuse, bi):
     """Both bodies on an i-bricked table at footprints whose chunks,
     pencil groups and i tiles do not divide the ranges (the last i tile
     ends past the written lanes), at every compiled row width, lookahead 1
     and 2, and on storage that is not 16-byte aligned (pieces of one
-    float)."""
-    fn, x = _ib_sweep("s7pt", fuse, region, bd=(4, 4, 4), batch=2)
+    float).  With 8-lane bricks, and with 4-lane bricks on the unaligned
+    storage (i tiles of 6 and 10 lanes), tiles start and end inside a
+    brick, so a brick's k-plane holds the lanes of two tiles: each tile
+    writes its own lanes alone.  A launch on NaN storage goes first, and
+    each footprint runs three times: a store that reached a neighbour
+    tile's lanes would leave there, in some block order, a value of its
+    own tile or a NaN."""
+    fn, x = _ib_sweep("s7pt", fuse, region, bd=(bi,) * 3, batch=2)
     plan = fn.plan
     rp = plan.regstream()
+    table = torch.from_numpy(plan.table).to(cuda)
     flat = torch.empty(x.numel() + 1, device=cuda)
     odd = flat[1:].view(x.shape)
     odd.copy_(x)
     assert odd.data_ptr() % 16 != 0
     BJ = plan.bdims[1]
-    for kch, pj, ti, d, st_ in ((3, 3, 20, 2, x), (5, 4, 56, 1, x),
-                                (2, 5, 12, 2, odd), (4, 2, 32, 1, odd),
-                                (4, 3, 72, 2, x)):
+    cases = {4: ((3, 3, 20, 2, x), (5, 4, 56, 1, x), (2, 5, 12, 2, odd),
+                 (4, 2, 32, 1, odd), (4, 3, 72, 2, x), (3, 2, 6, 2, odd),
+                 (2, 3, 10, 1, odd)),
+             8: ((3, 3, 20, 2, x), (2, 2, 12, 1, x), (4, 2, 28, 2, odd),
+                 (5, 1, 36, 1, x), (2, 3, 44, 2, odd), (3, 2, 64, 1, x))}[bi]
+    for kch, pj, ti, d, st_ in cases:
         rw = min(w for w in (40, 72, 80) if w >= ti + 2 * rp.h)
         nq = -(-(pj * BJ + 2 * fuse) // 4)
         v = dataclasses.replace(
@@ -1538,10 +1555,70 @@ def test_ibrick_regstream_ragged_footprints(cuda, region, fuse):
             smem_bytes=regstream_smem(plan.bdims, fuse, kch, pj, rw, nq, d,
                                       brick_cols(plan.bdims, ti, rp.h,
                                                  True)))
-        _ib_check(cuda, fn, st_, rp=v)
+        # NaN storage of the same alignment (the pieces' width follows it)
+        nan = (torch.full_like(flat, float("nan"))[1:].view(x.shape)
+               if st_ is odd else torch.full_like(x, float("nan")))
+        launch_regstream(nan, table, plan, v)
+        for _ in range(3):
+            _ib_check(cuda, fn, st_, rp=v)
         sp = dataclasses.replace(
             plan.stream(), kch=kch, pj=pj, ti=ti, d=d, skew=0)
         _ib_check(cuda, fn, st_, sp=sp)
+
+
+@pytest.mark.parametrize("region", ["owned", "ghost"])
+def test_ibrick_regstream_at_the_strong_cells_footprints(cuda, region):
+    """The strong cell's two sweeps (64 subdomains of 128^3 in 8^3 bricks,
+    fuse 4, ghost-inclusive on every axis and owned-only) at the planner's
+    footprints: against the plain version and the ring body
+    (``_ib_check``), every output quad of both stored from one row
+    offset."""
+    plan = StrongDecomp(dom=(512,) * 3, sdom=(128,) * 3,
+                        mesh_shape=(1, 1, 1), bdims=(8, 8, 8),
+                        ghost_depth=(8, 8, 8)).initialize(
+        skinlist_by_name("good", 3))
+    grid, nb = plan.sdec.grid, plan.sdec.nbricks
+    GK, GJ, GI = grid.shape
+    kw = (dict(k_range=(0, GK), j_range=(0, GJ), i_range=(0, GI))
+          if region == "ghost" else {})
+    fn = pencil_sweep("s7pt", grid, (8, 8, 8), 64 * nb, bench_params(),
+                      i_ghost=1, batch=64, batch_stride=nb, fuse=4, **kw)
+    rp = fn.plan.regstream()
+    assert (rp.kch, rp.pj, rp.ti, rp.rw) == {
+        "ghost": (18, 5, 72, 80), "owned": (16, 6, 64, 72)}[region]
+    assert quad_stores(fn.plan)
+    g = torch.Generator(cuda).manual_seed(61)
+    x = torch.rand((64 * nb, 8, 8, 8), device=cuda, generator=g)
+    _ib_check(cuda, fn, x)
+
+
+def test_quads_counter_moves_once_per_quad_storing_launch(cuda):
+    """``k1_ibrick_quads`` moves by one for each launch of K1's register
+    body on an i-bricked table at ``fuse=4`` (8^3 bricks: every output quad
+    from one row offset), never at ``fuse=2`` there (quads straddle
+    pencils), for its ring body there (``fuse=1``) nor for a pencil launch
+    of either body, while ``K1`` counts them all."""
+    dec = BrickDecomp(dims=(32, 32, 64), ghost_depth=(4, 4, 0),
+                      bdims=(4, 4, 64)).initialize(skinlist_by_name("good", 3))
+    x = random_storage(dec, seed=43, device=cuda)
+    for fuse in (4, 1):
+        fn = pencil_sweep("s7pt", dec.periodic_grid((0, 1, 2)), dec.bdims,
+                          dec.nbricks, bench_params(), fuse=fuse)
+        before = trace.counters()
+        fn(x)
+        after = trace.counters()
+        assert after["k1_ibrick_quads"] == before["k1_ibrick_quads"]
+        assert after["K1"] - before["K1"] == 1
+    for fuse, n in ((4, 1), (2, 0), (1, 0)):
+        fn, xi = _ib_sweep("s7pt", fuse, "ghost")
+        before = trace.counters()
+        fn(xi)
+        fn(xi)
+        after = trace.counters()
+        assert after["k1_ibrick_quads"] - before["k1_ibrick_quads"] == 2 * n
+        assert after["k1_ibrick"] - before["k1_ibrick"] == 2
+        assert after["K1"] - before["K1"] == 2
+    torch.cuda.synchronize()
 
 
 def test_strong_cubic_step_on_card_validates(cuda):
@@ -1560,6 +1637,7 @@ def test_strong_cubic_step_on_card_validates(cuda):
     after = trace.counters()
     d = {k: after[k] - before[k] for k in after}
     assert d["K1"] == d["k1_ibrick"] == d["k1_regstream"] == 2
+    assert d["k1_ibrick_quads"] == 2
     assert d["K5"] == len(step.exchange.stages) == 6
 
 

@@ -44,6 +44,7 @@ from bricklib_tpu_torch.codegen.pencil_kernel import (REGSTREAM_FUSE,
                                                       _stream_footprint,
                                                       k1_launch,
                                                       pencil_sweep,
+                                                      quad_stores,
                                                       regstream_smem,
                                                       regstream_stash_floats,
                                                       stash_floats,
@@ -507,6 +508,18 @@ def test_regstream_smem_counts_the_layout():
     got = regstream_smem((8, 8, 512), 4, 22, 6, 72, 14, 2)
     assert got == (4 * (80 + 11 * 14 * 296 + 72) + 8 * 24 * 8 + 8 * 56
                    + 16 * 48)
+    # i-bricked, bricks (4, 4, 4), i tile 8 and margin 4 (a level-0 row
+    # spans 5 brick columns, an output row 3): the brick table per brick
+    # column, (1 + 2) x (1 + 2) x 5 entries, the rows' ints, and the two
+    # buffers of output row offsets per row and brick column, 4 x 3 each
+    assert regstream_smem((4, 4, 4), 2, 1, 1, 40, 2, 2, (5, 3)) == (
+        4 * (48 + 7 * 2 * 168 + 40) + 8 * 3 * 3 * 5 + 8 * 8 + 16 * 4 * 3)
+    # the strong cell's ghost-inclusive sweep (bricks 8^3, chunks of 18
+    # brick rows, 5 pencils, i tile 72 in row width 80, pad 16: 11 brick
+    # columns a level-0 row, 10 an output row)
+    assert regstream_smem((8, 8, 8), 4, 18, 5, 80, 12, 2, (11, 10)) == (
+        4 * (96 + 11 * 12 * 336 + 80) + 8 * 20 * 7 * 11 + 8 * 48
+        + 16 * 40 * 10) == 197216
 
 
 def test_regstream_constants_are_the_kernels():
@@ -543,3 +556,50 @@ def test_regstream_planner_fills_the_card_at_the_main_paths():
     for name in ("strong-x16-ghost-f4", "strong-x16-owned-f4"):
         rp = REGIMES[name]().plan.regstream()
         assert rp.nstream == 384 and (rp.pj, rp.ti, rp.rw) == (6, 64, 72)
+    # the cubic strong stack (64 subdomains of 128^3 in 8^3 bricks, i
+    # bricked): ghost-inclusive in 4 waves of 512 blocks, owned in 3 of
+    # 384; every output quad of both stores from one row offset
+    plan = StrongDecomp(dom=(512,) * 3, sdom=(128,) * 3,
+                        mesh_shape=(1, 1, 1), bdims=(8, 8, 8),
+                        ghost_depth=(8, 8, 8)).initialize(
+        skinlist_by_name("good", 3))
+    grid, nb = plan.sdec.grid, plan.sdec.nbricks
+    GK, GJ, GI = grid.shape
+    for kw, want in (
+            (dict(k_range=(0, GK), j_range=(0, GJ), i_range=(0, GI)),
+             (18, 5, 72, 80, 512, 197216)),
+            ({}, (16, 6, 64, 72, 384, 201824))):
+        fn = pencil_sweep("s7pt", grid, (8, 8, 8), 64 * nb, bench_params(),
+                          i_ghost=1, batch=64, batch_stride=nb, fuse=4, **kw)
+        rp = fn.plan.regstream()
+        assert (rp.kch, rp.pj, rp.ti, rp.rw, rp.nstream,
+                rp.smem_bytes) == want
+        assert quad_stores(fn.plan)
+
+
+@pytest.mark.parametrize("fuse", [2, 3, 4])
+@pytest.mark.parametrize("bj", [4, 8, 6])
+def test_quad_stores_where_no_quad_straddles_a_pencil(fuse, bj):
+    """The register body stores a thread's quad of output rows from one
+    row offset wherever the quads, from ``F`` rows above the block's
+    first, fall whole in one pencil: on an i-bricked table with ``F`` and
+    ``BJ`` multiples of 4, so at ``fuse=4`` on bricks 4 or 8 deep in j.
+    Each item's rows checked as the kernel checks them; the pencil layout
+    keeps an offset a row."""
+    plan = StrongDecomp(dom=(48,) * 3, sdom=(24,) * 3,
+                        mesh_shape=(1, 1, 1), bdims=(bj, bj, 4),
+                        ghost_depth=(bj, bj, 4)).initialize(
+        skinlist_by_name("good", 3))
+    grid, nb = plan.sdec.grid, plan.sdec.nbricks
+    fn = pencil_sweep("s7pt", grid, (bj, bj, 4), nb, bench_params(),
+                      i_ghost=1, fuse=fuse)
+    rp = fn.plan.regstream()
+    assert rp is not None
+    for _sub, _k, (j0, j1), _i, _e in rp.blocks():
+        wj = (j1 - j0) * bj
+        rows = [4 * q - fuse for q in range(-(-(wj + 2 * fuse) // 4))]
+        out = [r for r in rows if r + 4 > 0 and r < wj]
+        one = all(r >= 0 and r + 4 <= wj and r // bj == (r + 3) // bj
+                  for r in out)
+        assert one == quad_stores(fn.plan) == (fuse == 4 and bj % 4 == 0)
+    assert not quad_stores(REGIMES["weak-ghost-f4"]().plan)

@@ -137,6 +137,71 @@ def test_each_counter_reads_its_wrappers_attribute(name):
         == {name: 3}
 
 
+def test_k1_ibrick_quads_is_a_counter():
+    """``k1_ibrick_quads`` (K1's register body on an i-bricked table, every
+    output quad of rows stored from one row offset) is among the program's
+    counters."""
+    assert "k1_ibrick_quads" in trace.counters()
+    assert trace.BODIES["k1_ibrick_quads"] == (
+        "codegen.pencil_kernel", "pencil_sweep_kernel", "quad_launches")
+
+
+@pytest.mark.parametrize("layout", ["ibrick", "pencil"])
+@pytest.mark.parametrize("fuse", [1, 2, 4])
+def test_k1_ibrick_quads_moves_once_per_quad_storing_launch(
+        monkeypatch, layout, fuse):
+    """Each launch of K1's register-streaming body on an i-bricked table at
+    ``fuse=4`` (bricks 4 deep in j: no quad of rows straddles a pencil)
+    moves ``k1_ibrick_quads``, ``k1_ibrick``, ``k1_regstream`` and ``K1``
+    by one; at ``fuse=2`` the body's quads straddle pencils and
+    ``k1_ibrick_quads`` stays; the ring body on an i-bricked table
+    (``fuse=1``) moves ``k1_ibrick`` and ``K1`` alone, and no pencil launch
+    moves ``k1_ibrick_quads``.  The library is a stand-in here, so the
+    wrapper's dispatch and counting run on the CPU."""
+    from types import SimpleNamespace
+
+    from bricklib_tpu_torch import _build
+    from bricklib_tpu_torch.codegen import pencil_kernel as k1
+    from bricklib_tpu_torch.comm import StrongDecomp
+
+    calls = []
+    lib = SimpleNamespace(
+        bt_pencil_sweep=lambda *a: calls.append("stream") or 0,
+        bt_pencil_sweep_regstream=lambda *a: calls.append("regstream") or 0)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(k1, "_check_k1_args", lambda *a: None)
+    if layout == "ibrick":
+        plan = StrongDecomp(dom=(32,) * 3, sdom=(16,) * 3,
+                            mesh_shape=(1, 1, 1), bdims=(4, 4, 4),
+                            ghost_depth=(4, 4, 4)).initialize(
+            skinlist_by_name("good", 3))
+        grid, nb = plan.sdec.grid, plan.sdec.nbricks
+        fn = k1.pencil_sweep("s7pt", grid, (4, 4, 4), 2 * nb,
+                             bench_params(), i_ghost=1, batch=2,
+                             batch_stride=nb, fuse=fuse)
+        x = torch.zeros((2 * nb, 4, 4, 4))
+    else:
+        dec = BrickDecomp(dims=(16, 16, 32), ghost_depth=(4, 4, 0),
+                          bdims=(4, 4, 32)).initialize(
+            skinlist_by_name("good", 3))
+        fn = k1.pencil_sweep("s7pt", dec.grid, dec.bdims, dec.nbricks,
+                             bench_params(), fuse=fuse)
+        x = torch.zeros((dec.nbricks, 4, 4, 32))
+    table = torch.from_numpy(fn.plan.table)
+    before = trace.counters()
+    k1.pencil_sweep_kernel(x, table, fn.plan)
+    after = trace.counters()
+    d = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    reg = int(fuse > 1)
+    ib = int(layout == "ibrick")
+    assert calls == ["regstream" if reg else "stream"]
+    assert d == {k: v for k, v in (("K1", 1), ("k1_regstream", reg),
+                                   ("k1_ibrick", ib),
+                                   ("k1_ibrick_quads",
+                                    ib * int(fuse == 4))) if v}
+
+
 def test_k4_register_body_launches_count_as_k4(monkeypatch):
     """Each launch of K4's register-streaming body moves ``k4_regstream``
     and ``K4`` by one; K4's other launches (the star at ``fuse`` 1 and 4,
