@@ -41,6 +41,17 @@ one-rank problem.  The tests pass ``device="cpu"``, which puts every rank
 on the CPU and runs the kernels' plain versions.  The reference's other
 options raise ``NotImplementedError`` naming the ROADMAP.md item that
 brings them.
+
+A caller that holds the state itself steps it with
+``new = p.advance(state)``: exactly what ``step(1)`` runs, on the state
+given (``p.state`` after ``init``), leaving the problem's own untouched.
+With tracing on (``trace.tracing()``), the constructor runs inside a
+``bricklib.plan`` span, with ``bricklib.plan.decomp`` (the
+``BrickDecomp``) and ``bricklib.plan.kernels`` (the sweep planners)
+inside it; ``init`` opens a ``bricklib.plan`` of its own around
+``bricklib.plan.domain`` (the host draw, ``_stack_global`` and
+``to_state``); every step runs inside a ``bricklib.step`` span whose
+argument is the problem's count of steps.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import trace
 from .codegen.evaluate import resolve_const_from_params
 from .codegen.jnp_backend import CardTables, oracle_iterate
 from .codegen.ir import (PASS_FUSE_MAX, StencilIR, fold_linear,
@@ -94,7 +106,16 @@ class Problem:
         ``vmem_limit_mb``, of which the last three are TPU knobs, accepted
         and ignored), plus ``device`` (a one-rank problem's device) and
         ``devices`` (one per rank of ``eff_mesh``, ravel order, repeats
-        allowed)."""
+        allowed).  Planned inside a ``bricklib.plan`` span."""
+        self._steps = 0
+        with trace.span(trace.PLAN):
+            self._plan(dims, stencil, params, bdims, ghost, mesh, backend,
+                       dtype, st_iter, exchange, field, slices, schedule,
+                       device, devices)
+
+    def _plan(self, dims, stencil, params, bdims, ghost, mesh, backend,
+              dtype, st_iter, exchange, field, slices, schedule, device,
+              devices):
         self.dims = tuple(int(d) for d in dims)
         nd = len(self.dims)
         mesh = tuple(int(m) for m in mesh)
@@ -229,9 +250,10 @@ class Problem:
                 and (nfld > 1 or self.aux_names)):
             raise not_ported(f"aux fields and stencil systems on rank {nd}",
                              FEATURES_ITEM)
-        self.dec = BrickDecomp(dims=self.dims, ghost_depth=self.ghost,
-                               bdims=self.bdims).initialize(
-            skinlist_by_name("good", nd))
+        with trace.span(trace.PLAN_DECOMP):
+            self.dec = BrickDecomp(dims=self.dims, ghost_depth=self.ghost,
+                                   bdims=self.bdims).initialize(
+                skinlist_by_name("good", nd))
         if self.slices > 1 and exchange == "fused":
             raise ValueError(
                 "exchange='fused' issues kernel remote DMAs, an "
@@ -604,9 +626,6 @@ class Problem:
         if extra_f:
             raise ValueError(f"unknown state fields {extra_f}; "
                              f"evolving fields are {list(self.fields)}")
-        for i, f_ in enumerate(self.fields):
-            if array.get(f_) is None:
-                array[f_] = random_array(gshape, self.dtype, seed + i)
         aux = dict(aux or {})
         missing = [n for n in self.aux_names if n not in aux]
         if missing:
@@ -616,18 +635,40 @@ class Problem:
         if extra:
             raise ValueError(f"unknown aux fields {extra}; stencil aux "
                              f"inputs are {self.aux_names}")
-        aux_stk = [self._stack_global(aux[n]) for n in self.aux_names]
-        dat_stk = [self._stack_global(array[f_]) for f_ in self.fields]
-        self._aux_states = tuple(to_state(self.mesh, s) for s in aux_stk)
-        self._states = tuple(to_state(self.mesh, s) for s in dat_stk)
+        with trace.span(trace.PLAN), trace.span(trace.PLAN_DOMAIN):
+            for i, f_ in enumerate(self.fields):
+                if array.get(f_) is None:
+                    array[f_] = random_array(gshape, self.dtype, seed + i)
+            aux_stk = [self._stack_global(aux[n]) for n in self.aux_names]
+            dat_stk = [self._stack_global(array[f_]) for f_ in self.fields]
+            self._aux_states = tuple(to_state(self.mesh, s)
+                                     for s in aux_stk)
+            self._states = tuple(to_state(self.mesh, s) for s in dat_stk)
         return self
+
+    @property
+    def state(self):
+        """The evolving fields' state as :meth:`advance` takes it: per
+        field (``fields`` order), per card a ``[ranks, nbricks, ...]``
+        tensor (``[ranks, nbricks, BK, BJ*BI]`` on the flat-pencil
+        backend); None before :meth:`init`."""
+        return self._states
+
+    def advance(self, state) -> tuple:
+        """One step of ``st_iter`` iterations of ``state`` (the form of
+        :attr:`state`), as :meth:`step` runs it; returns the new state and
+        leaves the problem's own as it was.  Inside a ``bricklib.step``
+        span (its argument: the problem's count of steps)."""
+        self._steps += 1
+        with trace.span(trace.STEP, step=self._steps):
+            return tuple(self._one(state, self._aux_states))
 
     def step(self, n: int = 1):
         """Advance ``n`` steps of ``st_iter`` stencil iterations each."""
         if self._states is None:
             raise RuntimeError("call init() first")
         for _ in range(n):
-            self._states = tuple(self._one(self._states, self._aux_states))
+            self._states = self.advance(self._states)
         return self
 
     def rollout(self, n: int):

@@ -180,11 +180,14 @@ class MxuPlan:
 
     def layout(self) -> bool:
         """The folded form equals the one K8 compiles in
-        (:data:`MXU_LAYOUT_125`), with every coefficient non-zero and the
-        k reach its radius: the entry point then runs that body."""
+        (:data:`MXU_LAYOUT_125`), with every coefficient non-zero, every
+        profile even in dk and the k reach its radius: the entry point
+        then runs that body."""
+        c = self.coefficients().reshape(len(self.wdefs), -1)
         return (self.folded() == MXU_LAYOUT_125
                 and (self.klo, self.khi) == (2, 2)
-                and bool(np.all(self.coefficients() != 0)))
+                and bool(np.all(c != 0))
+                and np.array_equal(c, c[:, ::-1]))
 
     def stream(self) -> "MxuStreamPlan":
         """Kernel K8's launch: the block footprint (k chunk, pencils, lane
@@ -357,8 +360,10 @@ def _mxu_stream_plan(bdims, ranges, lo, hi, nw: int, nktaps: int,
                     if (c + 2) * BK + rk + 1 < PLANE_SPAN)
     # thread instructions a warp's lane spends per step: per level-0 row of
     # its strip the k taps' loads, the profiles' FMAs and the V adds (the
-    # compiled layout), per output row the i stage; the generic body also
-    # computes W over the plane into shared memory and reads V's terms back
+    # compiled layout, one FMA a k tap as the costs were fitted; its body
+    # now pairs the taps at -dk and +dk), per output row the i stage; the
+    # generic body also computes W over the plane into shared memory and
+    # reads V's terms back
     per_row = (rk + 1 + nktaps + nterms if layout
                else rk + 1 + nktaps + nw)
     per_out = 2 * ndi + 2 + (0 if layout else nterms)
@@ -466,9 +471,15 @@ def pencil_sweep_mxu_plain(x: torch.Tensor, table: torch.Tensor,
 def pencil_sweep_mxu_kernel(x: torch.Tensor, table: torch.Tensor,
                             plan: MxuPlan) -> torch.Tensor:
     """Launch kernel K8 on CUDA tensors, as :meth:`MxuPlan.stream` plans
-    it; returns a fresh output whose unwritten bricks are undefined."""
-    out = launch_mxu(x, table, plan, None)
+    it; returns a fresh output whose unwritten bricks are undefined.
+    ``pencil_sweep_mxu_kernel.layout_launches`` counts the launches that
+    ran the compiled layout's body (``LayoutMxu125``), the program's
+    counter ``k8_layout``; each is a K8 launch too."""
+    sp = plan.stream()
+    out = _launch(x, table, plan, sp)
     pencil_sweep_mxu_kernel.launches += 1
+    if sp.layout:
+        pencil_sweep_mxu_kernel.layout_launches += 1
     return out
 
 
@@ -489,6 +500,14 @@ def mxu_footprint(plan: MxuPlan, kch: int, pj: int, nwc: int,
 def launch_mxu(x: torch.Tensor, table: torch.Tensor, plan: MxuPlan,
                sp: MxuStreamPlan | None) -> torch.Tensor:
     """K8 at ``sp``'s footprint (``None``: the planner's)."""
+    return _launch(x, table, plan,
+                   plan.stream() if sp is None
+                   else mxu_footprint(plan, sp.kch, sp.pj, sp.nwc, sp.d))
+
+
+def _launch(x: torch.Tensor, table: torch.Tensor, plan: MxuPlan,
+            sp: MxuStreamPlan) -> torch.Tensor:
+    """K8 at the footprint ``sp`` of ``plan``."""
     if x.device.type != "cuda" or table.device != x.device:
         raise ValueError("kernel K8 takes storage and table on one CUDA "
                          f"device, got {x.device} and {table.device}")
@@ -508,8 +527,6 @@ def launch_mxu(x: torch.Tensor, table: torch.Tensor, plan: MxuPlan,
                          f"{K8_MAX_DI} distinct di and {K8_MAX_TERMS} V "
                          "terms")
     (K0, K1), (J0, J1) = plan.ranges
-    sp = (plan.stream() if sp is None
-          else mxu_footprint(plan, sp.kch, sp.pj, sp.nwc, sp.d))
     if sp.nstream > 2 ** 31 - 1:
         raise ValueError("kernel K8 takes at most 2^31 - 1 blocks")
     fold = plan.folded()
@@ -535,6 +552,7 @@ def launch_mxu(x: torch.Tensor, table: torch.Tensor, plan: MxuPlan,
 
 
 pencil_sweep_mxu_kernel.launches = 0
+pencil_sweep_mxu_kernel.layout_launches = 0
 
 
 def pencil_sweep_mxu(stencil, grid: np.ndarray,

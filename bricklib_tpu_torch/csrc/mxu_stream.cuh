@@ -32,7 +32,10 @@
 // the row's 2*RK + 1 plane values (one per k tap), computes every profile
 // from them in registers and adds each profile to the V sums that take it
 // (the rows jj = jp - jlo - dj of each tuple); a V sum is complete after
-// its last term, so the 3 x 8 sums never all live at once.  Each value is
+// its last term, so the 3 x 8 sums never all live at once.  The layout's
+// profiles are even in dk (the stencil's symmetry), so the planes at -dk
+// and +dk are summed once a row and each profile takes RK + 1 products:
+// 20 operations a row where the taps one by one took 30.  Each value is
 // one shared-memory load per k tap and row: 5 x 12 loads for 8 rows, 7.5
 // per output row, where the first design read about 40 shared values per
 // output.  Any other folded stencil runs the generic body: the W stage over
@@ -41,11 +44,14 @@
 // a thread), then, one step later, V and the i stage from there for the
 // strip's 8 rows at once, the terms read at run time.
 //
-// The sums' order is the first design's: each W is the chain acc = 0; acc
-// = fmaf(c, x, acc) over dk in order, each V sum 0 + its terms in order,
-// each output 0 + V_t(di)[i + di] over di in order.  So K8 equals the first
-// design bit for bit: a value is computed once instead of per brick, by the
-// same operations in the same order.
+// The sums' order: the generic body's W is the chain acc = 0; acc =
+// fmaf(c, x, acc) over dk in order, the first design's; the compiled
+// layout's is c[0] * x[0], then fmaf(c[r], x[-r] + x[r], acc) for r = 1 ..
+// RK.  Each V sum is its terms in order, each output V_t(di)[i + di] over
+// di in order.  So the generic body equals the first design bit for bit,
+// and the compiled layout differs from it by the rounding of its W sums
+// only; either computes a value once for every footprint, by the same
+// operations in the same order.
 //
 // Level 0 comes in PW-float pieces (16-byte cp.async.cg where PW = 4),
 // each piece of a row wrapping modulo BI as a whole; the block's brick
@@ -121,8 +127,8 @@ struct LayoutMxuRuntime {
 };
 
 // The runtime folded form equals layout L's: every profile's k taps
-// non-zero over [-RK, RK] (rk is the coefficients' radius), the tuples'
-// terms and the di's tuples the same.
+// non-zero over [-RK, RK] (rk is the coefficients' radius) and even in dk,
+// the tuples' terms and the di's tuples the same.
 template <class L>
 static inline bool mxu_layout_matches(const MxuTaps& t, int rk, int klo,
                                       int khi, int jlo, int jhi) {
@@ -133,8 +139,9 @@ static inline bool mxu_layout_matches(const MxuTaps& t, int rk, int klo,
             || jlo != L::JLO || jhi != L::JHI || t.ntup != L::NT
             || t.ndi != L::NDI)
             return false;
-        for (int q = 0; q < L::NW * (2 * L::RK + 1); ++q)
-            if (t.c[q] == 0.0f)
+        constexpr int NK = 2 * L::RK + 1;
+        for (int q = 0; q < L::NW * NK; ++q)
+            if (t.c[q] == 0.0f || t.c[q] != t.c[q - q % NK + NK - 1 - q % NK])
                 return false;
         for (int d = 0; d < L::NDI; ++d)
             if (t.di[d] != L::di(d) || t.dtup[d] != L::dtup(d))
@@ -365,42 +372,51 @@ __device__ __forceinline__ void mxu_block(const float* __restrict__ x,
                     pl[d] = slot(pC - L::RK + d) + r0 * RW + cl;
                 float V[L::NT][MX_UR];
 #pragma unroll
-                for (int t = 0; t < L::NT; ++t)
-#pragma unroll
-                    for (int u = 0; u < MX_UR; ++u) V[t][u] = 0.0f;
-#pragma unroll
                 for (int jp = 0; jp < NR; ++jp) {
                     float v[NK];
 #pragma unroll
                     for (int d = 0; d < NK; ++d) v[d] = pl[d][jp * RW];
+                    // every profile is even in dk (mxu_layout_matches): the
+                    // planes at -dk and +dk are summed once for all of them
+                    float e[L::RK + 1];
+                    e[0] = v[L::RK];
+#pragma unroll
+                    for (int r = 1; r <= L::RK; ++r)
+                        e[r] = v[L::RK - r] + v[L::RK + r];
                     float W[L::NW];
 #pragma unroll
                     for (int w = 0; w < L::NW; ++w) {
-                        float a = 0.0f;
+                        float a = taps.c[w * NK + L::RK] * e[0];
 #pragma unroll
-                        for (int d = 0; d < NK; ++d)
-                            a = fmaf(taps.c[w * NK + d], v[d], a);
+                        for (int r = 1; r <= L::RK; ++r)
+                            a = fmaf(taps.c[w * NK + L::RK + r], e[r], a);
                         W[w] = a;
                     }
-                    // level-0 row jp is term dj of output row jp - jlo - dj
+                    // level-0 row jp is term dj of output row jp - jlo - dj;
+                    // a V sum starts at its first term (q = 0, row u)
 #pragma unroll
                     for (int t = 0; t < L::NT; ++t)
 #pragma unroll
                         for (int q = 0; q < L::NQ; ++q) {
                             const int u = jp - L::JLO - L::tdj(t, q);
-                            if (u >= 0 && u < MX_UR)
-                                V[t][u] += W[L::tw(t, q)];
+                            if (u >= 0 && u < MX_UR) {
+                                if (q == 0)
+                                    V[t][u] = W[L::tw(t, q)];
+                                else
+                                    V[t][u] += W[L::tw(t, q)];
+                            }
                         }
                 }
 #pragma unroll
                 for (int u = 0; u < MX_UR; ++u) {
-                    float acc = 0.0f;
+                    float acc;
 #pragma unroll
                     for (int d = 0; d < L::NDI; ++d) {
                         const float vt = V[L::dtup(d)][u];
-                        acc += L::di(d) == 0
+                        const float s = L::di(d) == 0
                             ? vt : __shfl_sync(0xffffffffu, vt,
                                                lane + L::di(d));
+                        acc = d == 0 ? s : acc + s;
                     }
                     if (lane_out && r0 + u < WJ) out[ro[r0 + u] + oi] = acc;
                 }

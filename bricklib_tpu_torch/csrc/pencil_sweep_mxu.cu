@@ -44,10 +44,11 @@
 // in registers for a strip of 8 j rows and 32 lanes, and the i stage takes
 // its neighbours' V by shuffles: a level-0 value is read once per k tap
 // and row (7.5 shared loads per output), V never touches shared memory,
-// and each step has one barrier.  Other folded stencils run the generic
-// body (W through shared memory, the folded form read at run time).  Each
-// output's sum keeps the first design's order, so the result is bit for
-// bit the same.
+// and each step has one barrier; its profiles, even in dk, sum the planes
+// at -dk and +dk once for all six.  Other folded stencils run the generic
+// body (W through shared memory, the folded form read at run time), whose
+// sums keep the first design's order, so its result is bit for bit the
+// same; the compiled layout's differs from it in the rounding of W alone.
 
 #include "mxu_stream.cuh"
 

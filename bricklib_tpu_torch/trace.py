@@ -2,8 +2,9 @@
 
 Spans mark the layer boundaries of a step:
 
-- ``bricklib.step``: a step of the weak or the strong driver (``step``:
-  its ordinal, the request id every span inside it carries);
+- ``bricklib.step``: a step of the weak or the strong driver or of
+  ``api.Problem`` (``step``: its ordinal, the request id every span inside
+  it carries);
 - ``bricklib.exchange``: every ghost exchange, at the entry of the callable
   :func:`~.comm.exchange.mesh_fn` makes (SHIFT, PUT, shift-remote and the
   strong exchanges);
@@ -12,11 +13,13 @@ Spans mark the layer boundaries of a step:
   its arguments made once per plan by :func:`sweep_args` (K1's and K4's
   also name their ``body``, ``stream`` or ``regstream``, and K1's its
   table's ``layout``, ``pencil`` or ``ibrick``);
-- ``bricklib.plan``: the weak or the strong driver's set-up, with the
-  children ``bricklib.plan.decomp`` (the decomposition and its tables),
+- ``bricklib.plan``: the weak or the strong driver's set-up, or
+  ``api.Problem``'s construction and its ``init``, with the children
+  ``bricklib.plan.decomp`` (the decomposition and its tables),
   ``bricklib.plan.domain`` (the host draw of the domain, bricked, and the
   state on the cards) and ``bricklib.plan.kernels`` (the sweeps' plans,
-  made on a step's first call for its batch of ranks).
+  made on a step's first call for its batch of ranks, or in
+  ``Problem()``).
 
 Tracing is off by default: :func:`span` then returns one shared no-op
 object and records and allocates nothing (the caller passes arguments made
@@ -36,7 +39,9 @@ launch too, those of K1's register-streaming body on an i-bricked table
 that store every output quad of rows from one row offset
 (``k1_ibrick_quads``: ``pencil_sweep_kernel.quad_launches``), each also a
 ``k1_ibrick`` and a ``k1_regstream`` launch, those of K4's
-register-streaming body (``k4_regstream``), each a K4 launch too, the
+register-streaming body (``k4_regstream``), each a K4 launch too, those of
+K8 that ran its compiled 125-point layout (``k8_layout``:
+``pencil_sweep_mxu_kernel.layout_launches``), each a K8 launch too, the
 ``Tensor.copy_`` calls between ranks (``rank_copies``) and the ghost bytes
 the exchanges write (``exchange_bytes``, each byte of the payload once).
 :func:`counters` returns a snapshot.
@@ -86,6 +91,8 @@ BODIES = {
                         "quad_launches"),
     "k4_regstream": ("codegen.pencil_kernel_4d", "launch_regstream_4d",
                      "launches"),
+    "k8_layout": ("codegen.mxu_kernel", "pencil_sweep_mxu_kernel",
+                  "layout_launches"),
 }
 
 _on = False

@@ -84,7 +84,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    i-bricked tables, ``k1_ibrick``, only in the cubic strong path, once a
    K1 launch there, each storing every output quad of rows from one row
    offset, ``k1_ibrick_quads``; K4's register-streaming body,
-   ``k4_regstream``, only in the 4-D paths, once a K4 launch there);
+   ``k4_regstream``, only in the 4-D paths, once a K4 launch there; K8
+   on its compiled 125-point layout, ``k8_layout``, in ``Problem``'s
+   ``backend="mxu"`` 125-point leg, once a K8 launch there);
 6. times each kernel beside its plain version, the least time the card
    could take for the same work (bytes over 3.35 TB/s or f32 operations
    over 67 TFLOP/s, the larger) and, where one PyTorch call computes the
@@ -1077,9 +1079,11 @@ def drive(name: str, run, want_of):
     fail unless each kernel the path runs (``want_of(result)``: kernel ->
     expected launches, each above 0) launched exactly as expected and the
     others not at all, K1 on an i-bricked table (``k1_ibrick``), its
-    output quads each stored from one row offset (``k1_ibrick_quads``) and
-    K4 through its register-streaming body (``k4_regstream``) as often as
-    expected (each 0 unless the path gives it)."""
+    output quads each stored from one row offset (``k1_ibrick_quads``), K4
+    through its register-streaming body (``k4_regstream``) and K8 on its
+    compiled 125-point layout (``k8_layout``) as often as expected (each 0
+    unless the path gives it)."""
+    from bricklib_tpu_torch.codegen.mxu_kernel import pencil_sweep_mxu_kernel
     from bricklib_tpu_torch.codegen.pencil_kernel import pencil_sweep_kernel
     from bricklib_tpu_torch.codegen.pencil_kernel_4d import \
         launch_regstream_4d
@@ -1090,12 +1094,14 @@ def drive(name: str, run, want_of):
     pencil_sweep_kernel.ibrick_launches = 0
     pencil_sweep_kernel.quad_launches = 0
     launch_regstream_4d.launches = 0
+    pencil_sweep_mxu_kernel.layout_launches = 0
     t0 = time.perf_counter()
     res = run()
     launches = {k: w.launches for k, w in wrappers.items()}
     bodies = {"k1_ibrick": pencil_sweep_kernel.ibrick_launches,
               "k1_ibrick_quads": pencil_sweep_kernel.quad_launches,
-              "k4_regstream": launch_regstream_4d.launches}
+              "k4_regstream": launch_regstream_4d.launches,
+              "k8_layout": pencil_sweep_mxu_kernel.layout_launches}
     path = want_of(res)
     want = {k: path.get(k, 0) for k in wrappers}
     want_bodies = {k: path.get(k, 0) for k in bodies}
@@ -1213,6 +1219,7 @@ def phase_paths(card: str) -> dict:
                     "K3": r["calls"]["copy"]}),
         ("Problem 512^3 mpi125pt mxu", lambda: problem_125("mxu", 1),
          lambda r: {"K8": r["sweeps"] * r["calls"]["step"],
+                    "k8_layout": r["sweeps"] * r["calls"]["step"],
                     "K3": r["calls"]["copy"]}),
         ("Problem 512^3 mpi125pt pencil fuse=1",
          lambda: problem_125("pencil", 1),

@@ -803,6 +803,29 @@ def test_exchange_pool_epochs_and_interleaved_plans(cuda):
     assert copy_intervals.launches == before + 6
 
 
+@pytest.mark.parametrize("name,params,layout", [
+    ("mpi125pt", {}, 1), ("mpi125pt", {"MPI_C9": 0.0}, 0),
+    ("mpi25pt", {}, 0)])
+def test_k8_layout_counter_moves_once_per_compiled_layout_launch(
+        cuda, name, params, layout):
+    """``k8_layout`` moves by one for each launch of K8 that runs the
+    compiled 125-point layout (mpi125pt with ``bench_params()``), never for
+    one of its generic body (a zero coefficient, another folded form),
+    while ``K8`` counts them all."""
+    dec = BrickDecomp(dims=(32, 32, 64), ghost_depth=(8, 8, 0),
+                      bdims=(8, 8, 64)).initialize(skinlist_by_name("good", 3))
+    fn = pencil_sweep_mxu(name, dec.periodic_grid((0, 1, 2)), dec.bdims,
+                          dec.nbricks, dict(bench_params(), **params))
+    x = torch.from_numpy(random_array((dec.nbricks, 8, 8 * 64), np.float32,
+                                      13)).to(cuda)
+    before = trace.counters()
+    fn(fn(x))
+    after = trace.counters()
+    assert after["K8"] - before["K8"] == 2
+    assert after["k8_layout"] - before["k8_layout"] == 2 * layout
+    torch.cuda.synchronize()
+
+
 def test_dense_kernel_refuses_nonlinear_stencils(cuda):
     fn = dense_stencil("cond", (10, 24, 128), (1, 8, 40), bench_params())
     with pytest.raises(NotImplementedError, match="nonlinear"):

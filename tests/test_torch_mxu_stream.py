@@ -13,6 +13,7 @@ output to the counts in PERF.md.  The kernel itself runs only on the card
 (``tests/test_torch_gpu.py``).
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -181,6 +182,23 @@ def test_a_zero_coefficient_leaves_the_layout():
                           info.nbricks, params)
     assert not np.all(fn.plan.coefficients() != 0)
     assert not fn.plan.layout()
+
+
+def test_a_profile_uneven_in_dk_leaves_the_layout():
+    """The layout's body sums the planes at -dk and +dk once for every
+    profile, so it takes only profiles even in dk, as the cube's are (its
+    coefficients go by |dk|); one tap moved off that symmetry runs the
+    generic body (``mxu_layout_matches`` checks the same on the card)."""
+    plan = _big("mpi125pt", "periodic").plan
+    c = plan.coefficients().reshape(6, 5)
+    assert np.array_equal(c, c[:, ::-1])
+    w0 = plan.wdefs[0] + ((0.5, ((1,),)),)
+    uneven = dataclasses.replace(plan, wdefs=(w0,) + plan.wdefs[1:])
+    assert uneven.folded() == MXU_LAYOUT_125
+    assert np.all(uneven.coefficients() != 0)
+    assert not uneven.layout()
+    assert re.search(r"t\.c\[q\] != t\.c\[q - q % NK \+ NK - 1 - q % NK\]",
+                     HEADER.read_text())
 
 
 def test_loads_per_output_under_the_layout():

@@ -146,6 +146,17 @@ def test_k1_ibrick_quads_is_a_counter():
         "codegen.pencil_kernel", "pencil_sweep_kernel", "quad_launches")
 
 
+def test_k8_layout_is_a_counter():
+    """``k8_layout`` (K8's launches on its compiled 125-point layout) is
+    among the program's counters, read from K8's wrapper, and no body's
+    name starts with "K" (a sum over the kernels' counters counts each
+    launch once)."""
+    assert "k8_layout" in trace.counters()
+    assert trace.BODIES["k8_layout"] == (
+        "codegen.mxu_kernel", "pencil_sweep_mxu_kernel", "layout_launches")
+    assert not any(k.startswith("K") for k in trace.BODIES)
+
+
 @pytest.mark.parametrize("layout", ["ibrick", "pencil"])
 @pytest.mark.parametrize("fuse", [1, 2, 4])
 def test_k1_ibrick_quads_moves_once_per_quad_storing_launch(
